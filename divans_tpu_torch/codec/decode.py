@@ -1,0 +1,529 @@
+"""Deferred decode on the device: the port of the main path of
+divans_tpu/codec/pallas_decode.py (`decompress_frames`).
+
+Three stages, as in the reference:
+  1. host C++ decodes each frame's command structure
+     (native.decode_cmd_structure), on a thread pool;
+  2. the device decodes every literal byte: 128 persistent worker lanes
+     each work through a queue of literal sub-streams (pack_lane_queues);
+     per chunk the CUDA kernel (lit_decode.lit_decode_chunk) decodes
+     against the frozen, premixed model, then the commit below applies
+     the previous chunk's updates (the deferred profile's one-chunk lag);
+  3. host C++ executes the command scripts (native.execute_script) into
+     one preallocated output buffer, on a 2-thread finish pool.
+
+The commit is plain PyTorch on int32 tensors, as it was XLA (not Pallas)
+in the reference.  Layout is natural: per lane, a model of 385 rebased
+literal rows x 16 CDF entries ([B, R, 16]).
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor, as_completed
+
+import numpy as np
+import torch
+
+from .. import constants, native
+from ..probability import cdf16
+from ..probability.weights import (WEIGHT_MAX, bit_length_pos, fix_weights,
+                                   floor_div, norm_weight)
+from . import lit_decode
+from .deferred import ADJ_CLAMP, MAX_RENORM_PASSES, SUB_LIT, lit_subs_split
+
+LANES = 128
+N_HI = 64
+N_LO = 128
+N_PLANES = 2 * N_HI + 2 * N_LO   # 384 kernel-order planes of the snapshot
+R_LIT = 385                      # rebased literal rows (row 0 unused)
+GROUP_CHUNKS = 128               # chunk slots per lane per issued group
+N_FINISHERS = 2
+
+# frames decoded by each path of decompress_frames since the last reset:
+# "device" = literals on the lane kernel, "host" = native serial decode
+STATS = {"device_frames": 0, "host_frames": 0}
+
+
+def _stream_words(s: bytes) -> np.ndarray:
+    """An ANS stream body (past the 4-byte state) as packed renorm words:
+    the bytes read as little-endian int32 (two u16 words each)."""
+    body = s[4:]
+    pad = (-len(body)) % 4
+    if pad:
+        body = body + b"\0" * pad
+    return np.frombuffer(body, dtype="<i4")
+
+
+def lut_table() -> np.ndarray:
+    """int32[512]: UTF8-mode lut0 ++ lut1."""
+    mode = constants.LITERAL_PREDICTION_MODE_UTF8
+    return np.concatenate([constants.literal_lut0(mode),
+                           constants.literal_lut1(mode)]).astype(np.int32)
+
+
+def kernel_perm(layout):
+    """Static permutation: the 384 kernel-order planes -> rebased literal
+    rows ([lit_hi | cm_first | lit_lo | cm_second permuted to
+    (c3, hi)]), plus the rebased segment offsets."""
+    seg = layout.segments
+    lit_base = seg["lit_hi"][0]
+
+    def reb(name):
+        return seg[name][0] - (lit_base - 1)
+
+    hi_off, lo_off = reb("lit_hi"), reb("lit_lo")
+    cm1_off, cm2_off = reb("cm_first"), reb("cm_second")
+    perm = np.zeros(N_PLANES, np.int32)
+    perm[0:64] = hi_off + np.arange(64)
+    perm[64:128] = cm1_off + np.arange(64)
+    perm[128:256] = lo_off + np.arange(128)
+    for c3 in range(8):
+        for hi in range(16):
+            perm[256 + c3 * 16 + hi] = cm2_off + hi * 8 + c3
+    return perm, (hi_off, lo_off, cm1_off, cm2_off)
+
+
+def _renorm_bound_q(spd_all, s_bytes: int) -> int | None:
+    """Worst-case renorm passes of the commit from the per-stream speeds
+    [..., 6] = (inc, lim) x 3: a row's max is < lim + inc * s_bytes at
+    apply time and each pass maps m -> (m+16) - ((m+16) >> 2).  None when
+    a pair would need more than MAX_RENORM_PASSES."""
+    sp = np.asarray(spd_all).reshape(-1, 6)
+    pairs = {(int(i), int(l)) for r in sp
+             for i, l in (r[0:2], r[2:4], r[4:6]) if i}
+    p_max = 0
+    for inc, lim in pairs:
+        m = max(lim - 1, 64) + inc * s_bytes
+        p = 0
+        while m >= lim and p <= MAX_RENORM_PASSES:
+            m = (m + 16) - ((m + 16) >> 2)
+            p += 1
+        if p > MAX_RENORM_PASSES:
+            return None
+        p_max = max(p_max, p)
+    return p_max
+
+
+@dataclasses.dataclass
+class LaneQueues:
+    """Streams bin-packed onto lanes, all int32 numpy arrays: words [L,W]
+    (each lane's streams' packed words back to back), counts [L]
+    (streams per lane), and per queue position f and lane l: state0,
+    n_lit, woff (word offset) [F,L], lcmap [F,L,64], spd [F,L,6]
+    ((inc, lim) of speeds 0, 2, 3); luts [512]."""
+    words: np.ndarray
+    counts: np.ndarray
+    state0: np.ndarray
+    n_lit: np.ndarray
+    woff: np.ndarray
+    lcmap: np.ndarray
+    spd: np.ndarray
+    luts: np.ndarray
+
+    def to(self, device) -> dict:
+        return {f.name: torch.from_numpy(
+                    np.ascontiguousarray(getattr(self, f.name))).to(device)
+                for f in dataclasses.fields(self)}
+
+
+def pack_lane_queues(lit_streams: list[bytes], n_lits: list[int],
+                     lcmaps, speeds_list, chunk: int, lanes: int = LANES,
+                     spread: int | None = None):
+    """LPT bin-packing of literal streams onto `lanes` worker lanes
+    (streams by chunk count, largest first, each to the least-loaded
+    lane).  Zero-literal streams take no slot.  `spread` limits the
+    packing to the first N lanes (tests force deep queues with it).
+    Returns (LaneQueues, n_steps, placement): placement[i] = (lane,
+    chunk offset) or None; n_steps = the longest lane's chunk count."""
+    s_bytes = chunk // 2
+    jobs = sorted(
+        ((-(-n_lits[i] // s_bytes), i) for i in range(len(lit_streams))
+         if n_lits[i] > 0), reverse=True)
+    heap = [(0, l) for l in range(spread or lanes)]
+    lane_jobs: list[list[int]] = [[] for _ in range(lanes)]
+    loads = [0] * lanes
+    for c, i in jobs:
+        load, l = heapq.heappop(heap)
+        lane_jobs[l].append(i)
+        loads[l] = load + c
+        heapq.heappush(heap, (load + c, l))
+    # the queue depth and word columns keep the JAX package's padding
+    # (pow2 depth, 2048-word columns), so both packings are equal arrays
+    f_max = max(1, max(len(j) for j in lane_jobs))
+    f_max = 1 << (f_max - 1).bit_length()
+    state0 = np.zeros((f_max, lanes), np.int32)
+    n_lit = np.zeros((f_max, lanes), np.int32)
+    woff = np.zeros((f_max, lanes), np.int32)
+    lcmap = np.zeros((f_max, lanes, 64), np.int32)
+    spd = np.zeros((f_max, lanes, 6), np.int32)
+    counts = np.zeros(lanes, np.int32)
+    placement: list[tuple[int, int] | None] = [None] * len(lit_streams)
+    lane_words: list[np.ndarray] = []
+    for l, jl in enumerate(lane_jobs):
+        segs, w_off, c_off = [], 0, 0
+        for k, i in enumerate(jl):
+            s = lit_streams[i]
+            w = _stream_words(s)
+            if len(s) >= 4:
+                state0[k, l] = int.from_bytes(s[:4], "little")
+            n_lit[k, l] = n_lits[i]
+            woff[k, l] = w_off
+            lcmap[k, l] = np.asarray(lcmaps[i], np.int32)[:64]
+            sp = speeds_list[i]
+            spd[k, l] = [sp[0].inc, sp[0].lim, sp[2].inc, sp[2].lim,
+                         sp[3].inc, sp[3].lim]
+            placement[i] = (l, c_off)
+            segs.append(w)
+            w_off += w.shape[0]
+            c_off += -(-n_lits[i] // s_bytes)
+        counts[l] = len(jl)
+        lane_words.append(np.concatenate(segs) if segs
+                          else np.zeros(0, np.int32))
+    w_len = max(2, max(w.shape[0] for w in lane_words))
+    w_len = -(-w_len // 2048) * 2048
+    words = np.zeros((lanes, w_len), np.int32)
+    for l, w in enumerate(lane_words):
+        words[l, :w.shape[0]] = w
+    n_steps = max(1, max(loads))
+    return (LaneQueues(words, counts, state0, n_lit, woff, lcmap, spd,
+                       lut_table()), n_steps, placement)
+
+
+def _unpack6(packed: np.ndarray) -> np.ndarray:
+    """Inverse of the JAX package's pack6 on the trailing axis."""
+    p = np.asarray(packed, np.int64)[..., None]
+    vals = (p >> (6 * np.arange(4))) & 63
+    return vals.reshape(*packed.shape[:-1], -1).astype(np.int32)
+
+
+def from_tpu_lane_arrays(arrays) -> LaneQueues:
+    """The JAX package's pack_lane_queues arrays (TPU lane-minor layout,
+    6-bit packed tables) as the port's LaneQueues."""
+    words, counts, state0, n_lit_all, woff_all, lcmap_all, spd_all, luts = \
+        [np.asarray(a) for a in arrays]
+    lcmap = _unpack6(np.swapaxes(lcmap_all, 1, 2))        # [F, L, 64]
+    return LaneQueues(words.astype(np.int32), counts.astype(np.int32),
+                      state0.astype(np.int32), n_lit_all.astype(np.int32),
+                      woff_all.astype(np.int32), lcmap,
+                      spd_all.astype(np.int32), _unpack6(luts[:, 0]))
+
+
+# ------------------------------------------------------------------ commit
+
+def _adj_tables(mix, cm, nib):
+    """Per-(plane, sym) mixer adjustments of one nibble class under the
+    chunk-frozen tables, [B, P, 16] each for (cm, nib): every byte's
+    adjustment is a function of (plane, sym) alone, so the chunk's sum
+    is sum(count * adj)."""
+    fw = cdf16.freqs_all(mix)
+    error = (1 << 15) - fw
+    shift = torch.clamp(bit_length_pos(fw * error) - 15, min=0)
+    return [torch.clamp((error * (n - fw)) >> shift, -ADJ_CLAMP, ADJ_CLAMP)
+            for n in (cdf16.freqs_all(cm), cdf16.freqs_all(nib))]
+
+
+def _apply_pend(committed, weights, pend, n_pass: int):
+    """The boundary CDF rule and mixer rule of the deferred profile
+    (codec/deferred.py), for a whole lane batch."""
+    add, limsum, cnt, wadj = pend
+    committed = committed + add
+    lim_eff = torch.where(cnt > 0, floor_div(limsum, torch.clamp(cnt, min=1)),
+                          0x8000)
+    bias = torch.arange(1, 17, dtype=torch.int32, device=committed.device)
+    # masked passes: a row under its limit is left as it is, so n_pass
+    # passes equal the reference's loop (which stops once no row is over)
+    for _ in range(n_pass):
+        over = committed[..., 15] >= lim_eff
+        cb = committed + bias
+        committed = torch.where(over[..., None], cb - (cb >> 2), committed)
+    w01 = torch.clamp(weights[..., :2] + wadj, 1, WEIGHT_MAX)
+    w0, w1 = fix_weights(w01[..., 0], w01[..., 1])
+    return committed, torch.stack([w0, w1, norm_weight(w0, w1)], dim=-1)
+
+
+@torch.inference_mode()
+def decode_lanes(queues: LaneQueues, n_steps: int, chunk: int, layout,
+                 device, chunk_fn=None, timing: list | None = None):
+    """Run `n_steps` chunks over every lane; returns the decoded bytes,
+    uint8[L, n_steps * chunk//2] on `device` (a stream placed at chunk
+    offset c starts at column c * chunk//2).
+
+    chunk_fn defaults to the kernel wrapper; a caller may pass another
+    function of the same signature (the plain version, to compare).
+    With `timing`, each step appends (four CUDA events: step start,
+    kernel start, kernel end, step end; the host seconds spent issuing
+    the step): the commit is the step less the kernel."""
+    chunk_fn = chunk_fn or lit_decode.lit_decode_chunk
+    perm_np, offs = kernel_perm(layout)
+    # the concatenated pend below relies on the rebased literal segments
+    # being contiguous in layout order
+    assert offs == (1, 65, 193, 257), offs
+    assert layout.num_rows - layout.segments["lit_hi"][0] + 1 == R_LIT
+    s = chunk // 2
+    n_renorm = _renorm_bound_q(queues.spd, s)
+    n_pass = (max(1, n_renorm) if n_renorm is not None and n_renorm <= 3
+              else MAX_RENORM_PASSES)
+    dev = torch.device(device)
+    q = queues.to(dev)
+    words, counts, luts = q["words"], q["counts"], q["luts"]
+    b = counts.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    lanes = torch.arange(b, device=dev)
+    perm = torch.from_numpy(perm_np).long().to(dev)
+    # pend row hi*8+c3 (cm_second) <- count row c3*16+hi (lo plane index)
+    perm_cm2 = torch.tensor([(i % 8) * 16 + i // 8 for i in range(128)],
+                            device=dev)
+    byte_iota = torch.arange(s, **i32)
+    ones = torch.ones(b * s, **i32)
+
+    committed0 = cdf16.cdf_init((b, R_LIT), dev)
+    weights0 = torch.cat([torch.ones((b, 2, 2), **i32),
+                          torch.full((b, 2, 1), 1 << 14, **i32)], dim=2)
+    committed, weights = committed0, weights0
+    pend = (torch.zeros((b, R_LIT, 16), **i32), torch.zeros((b, R_LIT), **i32),
+            torch.zeros((b, R_LIT), **i32), torch.zeros((b, 2, 2), **i32))
+    fidx = torch.zeros(b, dtype=torch.long, device=dev)
+    state = q["state0"][0].clone()
+    cursor = q["woff"][0] * 2
+    p1 = torch.zeros(b, **i32)
+    p2 = torch.zeros(b, **i32)
+    n_rem = q["n_lit"][0].clone()
+    out = torch.empty((b, n_steps * s), dtype=torch.uint8, device=dev)
+
+    def seg(cnt, spd, inc_col, lim_col):
+        """(add, limsum, cnt) of one row class from its [B, P, 16] counts;
+        a speed with inc == 0 records nothing."""
+        inc = spd[:, inc_col, None]
+        tot = torch.sum(cnt, dim=-1, dtype=torch.int32) * (inc != 0)
+        add = inc[:, :, None] * torch.cumsum(cnt, dim=-1, dtype=torch.int32)
+        return add, spd[:, lim_col, None] * tot, tot
+
+    for step in range(n_steps):
+        if timing is not None:
+            t_host = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+        # ---- stream switch: an exhausted lane with more queued loads its
+        # next stream and resets model, mixer, pend, ANS state, context
+        nxt = fidx + 1
+        sw = (n_rem <= 0) & (nxt < counts)
+        fidx = torch.where(sw, nxt, fidx)
+        state = torch.where(sw, q["state0"][fidx, lanes], state)
+        cursor = torch.where(sw, q["woff"][fidx, lanes] * 2, cursor)
+        p1 = torch.where(sw, 0, p1)
+        p2 = torch.where(sw, 0, p2)
+        n_rem = torch.where(sw, q["n_lit"][fidx, lanes], n_rem)
+        lcmap = q["lcmap"][fidx, lanes]
+        spd = q["spd"][fidx, lanes]
+        swb = sw[:, None, None]
+        committed = torch.where(swb, committed0, committed)
+        weights = torch.where(swb, weights0, weights)
+        pend = tuple(torch.where(sw.view(-1, *[1] * (p.ndim - 1)), 0, p)
+                     for p in pend)
+
+        # ---- premix the frozen cm/nib plane pairs once per chunk
+        g = committed[:, perm]                               # [B, 384, 16]
+        nw_lo = (weights[:, 0, 2] & 0xFFFF)[:, None]
+        nw_hi = (weights[:, 1, 2] & 0xFFFF)[:, None]
+        mix_hi = cdf16.average(g[:, 64:128], g[:, 0:64], nw_hi)
+        mix_lo = cdf16.average(g[:, 256:384], g[:, 128:256], nw_lo)
+        kmodel = torch.cat([mix_hi, mix_lo], dim=1).to(torch.int16)
+        sc_in = torch.stack([state, p1, p2, n_rem, cursor])
+        if timing is not None:
+            ev[1].record()
+        bytes_c, ctx_c, sc_out = chunk_fn(kmodel, words, lcmap, luts, sc_in, s)
+        if timing is not None:
+            ev[2].record()
+        out[:, step * s:(step + 1) * s] = bytes_c
+
+        # ---- per-class count histograms (integer index_add_)
+        byte = bytes_c.long()
+        hi, lo = byte >> 4, byte & 15
+        ctx = ctx_c.long()
+        active = byte_iota[None, :] < n_rem[:, None]
+        idx_hi = torch.where(active, lanes[:, None] * 1024 + ctx * 16 + hi,
+                             b * 1024)
+        cnt_hi = torch.zeros(b * 1024 + 1, **i32).index_add_(
+            0, idx_hi.reshape(-1), ones)[:-1].view(b, N_HI, 16)
+        idx_lo = torch.where(
+            active, lanes[:, None] * 2048 + ((ctx >> 3) * 16 + hi) * 16 + lo,
+            b * 2048)
+        cnt_lo = torch.zeros(b * 2048 + 1, **i32).index_add_(
+            0, idx_lo.reshape(-1), ones)[:-1].view(b, N_LO, 16)
+        cnt_cm2 = cnt_lo[:, perm_cm2]
+
+        # ---- mixer adjustments: count histograms against adj tables
+        wadj_rows = []
+        for cnt, mix, cm, nib in ((cnt_hi, mix_hi, g[:, 64:128], g[:, 0:64]),
+                                  (cnt_lo, mix_lo, g[:, 256:384],
+                                   g[:, 128:256])):
+            wadj_rows.append(torch.stack(
+                [torch.sum(cnt * a, dim=(1, 2), dtype=torch.int32)
+                 for a in _adj_tables(mix, cm, nib)], dim=-1))
+        wadj = torch.stack([wadj_rows[1], wadj_rows[0]], dim=1)   # [B,2,2]
+
+        segs = [seg(cnt_hi, spd, 0, 1),     # lit_hi    <- speed 0
+                seg(cnt_lo, spd, 0, 1),     # lit_lo    <- speed 0
+                seg(cnt_hi, spd, 4, 5),     # cm_first  <- speed 3
+                seg(cnt_cm2, spd, 2, 3)]    # cm_second <- speed 2
+        zrow = torch.zeros((b, 1, 16), **i32)
+        new_pend = (torch.cat([zrow] + [x[0] for x in segs], dim=1),
+                    torch.cat([zrow[:, :, 0]] + [x[1] for x in segs], dim=1),
+                    torch.cat([zrow[:, :, 0]] + [x[2] for x in segs], dim=1),
+                    wadj)
+        # ---- commit the previous chunk's updates (lag 1)
+        committed, weights = _apply_pend(committed, weights, pend, n_pass)
+        pend = new_pend
+        state = sc_out[0]
+        cursor = cursor + sc_out[3]
+        p1, p2 = sc_out[1], sc_out[2]
+        n_rem = n_rem - s
+        if timing is not None:
+            ev[3].record()
+            timing.append((ev, time.perf_counter() - t_host))
+    return out
+
+
+def issue_lane_queues(queues: LaneQueues, n_steps: int, chunk: int, layout,
+                      device, timing: list | None = None):
+    """Decode one group of lanes and start the copy to the host: returns
+    (host uint8 tensor, CUDA event or None).  On the card the copy goes
+    to pinned memory without blocking; the event marks its end."""
+    out = decode_lanes(queues, n_steps, chunk, layout, device, timing=timing)
+    if out.device.type != "cuda":
+        return out, None
+    host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _host_decode(f, layout, chunk):
+    raw = native.decode_metablock(f.cmd, f.lit, f.raw_len,
+                                  layout.profile.name != "stride", layout,
+                                  chunk)
+    if raw is None:
+        raise NotImplementedError(
+            "frame outside the device envelope and the native decoder: "
+            "the golden deferred decoder is not ported (ROADMAP.md)")
+    return raw
+
+
+def decode_structure(f, chunk: int, layout):
+    """Stage 1 for one frame: its native command script, or None when the
+    frame leaves the lane kernel's envelope (the mix/split/stride
+    profiles, or a script the device cannot take)."""
+    if layout.profile.name != "cm" or not layout.lo_bucketed:
+        return None
+    sc = native.decode_cmd_structure(f.cmd, f.raw_len, layout, chunk)
+    return sc if sc is not None and sc.supported else None
+
+
+def lane_jobs(frames, ready):
+    """The lane jobs of one group: each literal sub-stream of a frame is
+    one job.  ready: [(frame index, script)].  Returns (streams, n_lits,
+    lcmaps, speeds, spans), the first four per job and spans[k] = (first
+    job, job count) of ready[k]."""
+    streams, n_lits, lcmaps, spds, spans = [], [], [], [], []
+    for i, sc in ready:
+        subs = lit_subs_split(frames[i].lit)
+        spans.append((len(streams), len(subs)))
+        for j, payload in enumerate(subs):
+            streams.append(payload)
+            n_lits.append(max(0, min(SUB_LIT, sc.lit_total - j * SUB_LIT)))
+            lcmaps.append(sc.lcmap)
+            spds.append(sc.speeds)
+    return streams, n_lits, lcmaps, spds, spans
+
+
+def decompress_frames(frames, chunk: int, layout, device,
+                      timing: list | None = None) -> bytes:
+    """Full deferred decode of a frame list on `device`.
+
+    Pipelining: all frames' structure passes are queued on a thread pool
+    at once; frames gather into GROUPS in script-arrival order, sized by
+    literal chunk need (GROUP_CHUNKS per lane), and each group is issued
+    as soon as it is full, while later groups' structure passes run.
+    Kernel launches and tensor ops all come from this thread, on one
+    stream.  Each group's finish (wait for its copy, reassemble the
+    literals, execute the scripts) runs on a 2-thread pool.
+
+    Frames outside the lane kernel's envelope (the mix/split/stride
+    profiles, or a script the device cannot take) decode host-side
+    through native.decode_metablock on the same pool.  `timing` is
+    handed to decode_lanes (per-step CUDA events)."""
+    s_bytes = chunk // 2
+    need_target = LANES * GROUP_CHUNKS
+
+    def one(f):
+        """("dev", script) for frames in the kernel envelope, else
+        ("host", raw bytes) decoded right here."""
+        sc = decode_structure(f, chunk, layout)
+        if sc is not None:
+            return "dev", sc
+        return "host", _host_decode(f, layout, chunk)
+
+    offsets = np.zeros(len(frames) + 1, np.int64)
+    np.cumsum([f.raw_len for f in frames], out=offsets[1:])
+    out_buf = np.empty(int(offsets[-1]), np.uint8)
+
+    def issue_group(ready):
+        """ready: [(frame index, script)]."""
+        streams, n_lits, lcmaps, spds, spans = lane_jobs(frames, ready)
+        queues, n_steps, placement = pack_lane_queues(
+            streams, n_lits, lcmaps, spds, chunk)
+        host, event = issue_lane_queues(queues, n_steps, chunk, layout,
+                                        device, timing)
+        return ready, spans, n_lits, placement, host, event
+
+    def finish_group(group):
+        ready, spans, n_lits, placement, host, event = group
+        if event is not None:
+            event.synchronize()
+        arr = host.numpy()
+        for (i, sc), (off, k) in zip(ready, spans):
+            lb = np.empty(sum(n_lits[off:off + k]), np.uint8)
+            pos = 0
+            for j in range(off, off + k):
+                if placement[j] is None:
+                    continue
+                lane, c_off = placement[j]
+                o = c_off * s_bytes
+                lb[pos:pos + n_lits[j]] = arr[lane, o:o + n_lits[j]]
+                pos += n_lits[j]
+            native.execute_script(sc, lb,
+                                  out=out_buf[offsets[i]:offsets[i + 1]])
+
+    finish_futs = []
+    n_workers = max(1, min(8, os.cpu_count() or 2))
+    with ThreadPoolExecutor(n_workers) as ex, \
+            ThreadPoolExecutor(N_FINISHERS) as finisher:
+        futs = {ex.submit(one, frames[i]): i for i in range(len(frames))}
+        ready: list = []
+        need = 0
+        for fut in as_completed(futs):
+            kind, val = fut.result()
+            i = futs[fut]
+            STATS["device_frames" if kind == "dev" else "host_frames"] += 1
+            if kind == "host":
+                out_buf[offsets[i]:offsets[i + 1]] = np.frombuffer(val,
+                                                                   np.uint8)
+                continue
+            ready.append((i, val))
+            # SUB_LIT is a multiple of s_bytes: per-sub chunk ceils sum to
+            # one ceil over the frame's literal total
+            need += -(-val.lit_total // s_bytes)
+            if need >= need_target:
+                finish_futs.append(finisher.submit(finish_group,
+                                                   issue_group(ready)))
+                ready, need = [], 0
+        if ready:
+            finish_futs.append(finisher.submit(finish_group,
+                                               issue_group(ready)))
+    for fut in finish_futs:
+        fut.result()
+    return out_buf.tobytes()

@@ -1,0 +1,411 @@
+"""The port's ctypes binding to the repo's host C++ library.
+
+native/codec_core.cpp and native/trace_builder.cpp build
+native/libdivans_tpu_native.so (`make -C native`, run here when the
+library is absent).  The port binds it itself, with the calls it needs:
+
+  * decode: the command-structure pass (`decode_cmd_structure`), the
+    script executor (`execute_script`) and the serial whole-frame decoder
+    (`decode_metablock`) for frames outside the device envelope;
+  * encode: the matcher and trace FSM (`build_trace`), the stream coder
+    (`encode_streams`) and `compress`, limited to what runs wholly in
+    C++ (quality <= 10, the mechanical trace);
+  * `crc32c` (SSE4.2).
+
+There is no pure-Python engine behind it: if the library cannot be built
+or loaded, `load()` raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+from . import constants
+from .codec.layout import ModelLayout, PROFILES
+from .errors import CorruptStream, ErrCode
+from .options import DivansOptions
+from .probability.speed import Speed, MUD
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SO = os.path.join(_ROOT, "native", "libdivans_tpu_native.so")
+
+# segment order shared with trace_builder.cpp's Seg enum
+SEGS = ["cc", "ll_cs", "ll_beg", "ll_last", "ll_mant",
+        "c_ccs", "c_cbeg", "c_clast", "c_cmant",
+        "c_dmn", "c_dbeg", "c_dlast", "c_dmant",
+        "bt_stride",
+        "pm_only", "pm_dcm", "pm_pd", "pm_palette", "pm_mvmode",
+        "pm_cmn", "pm_cf", "pm_cs",
+        "lit_hi", "lit_lo", "cm_first", "cm_second",
+        "d_sbeg", "d_slast", "d_idx", "d_tr",
+        "pm_mix",
+        "lit_hi_s", "lit_lo_s",
+        "bt_mn", "bt_f", "bt_s"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int32
+_PI = ctypes.POINTER(ctypes.c_int32)
+# argument types of the C entry points (codec_core.cpp, trace_builder.cpp)
+_SIGNATURES = {
+    "dtpu_match": [_P, _I, _I, _P, _I],
+    "dtpu_parse_optimal": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I],
+    "dtpu_build_trace": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+                         _P, _P, _P, _P, _I],
+    "dtpu_encode_streams_sel": [_P, _I, _I, _I, _I, _I, _P, _PI, _P, _PI],
+    "dtpu_decode_metablock": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _I,
+                              _P, _P, _P, _P, _I, _P, _P, _P, _I],
+    "dtpu_decode_cmd_structure": [_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+                                  _P, _I, _P, _P, _P, _I, _P, _I, _P, _I,
+                                  _P, _P],
+    "dtpu_execute_script": [_P, _I, _P, ctypes.c_int64, _P, _I, _P, _I],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def load():
+    """The native library, built with `make -C native` if absent."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not os.path.exists(_SO):
+            res = subprocess.run(["make", "-C", os.path.join(_ROOT, "native")],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError("building the native library failed:\n"
+                                   + res.stdout + res.stderr)
+        lib = ctypes.CDLL(_SO)
+        for fn, args in _SIGNATURES.items():
+            getattr(lib, fn).restype = ctypes.c_int32
+            getattr(lib, fn).argtypes = args
+        lib.dtpu_crc32c.restype = ctypes.c_uint32
+        lib.dtpu_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                    ctypes.c_uint32]
+        _lib = lib
+        return lib
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    buf = data if isinstance(data, bytes) else bytes(data)
+    return load().dtpu_crc32c(buf or b"\0", len(buf), crc) & 0xFFFFFFFF
+
+
+def _seg_array(layout: ModelLayout) -> np.ndarray:
+    return np.array([layout.idx(s, *([0] * len(layout.segments[s][1])))
+                     if s in layout.segments else -1
+                     for s in SEGS], np.int32)
+
+
+def _luts():
+    lut0 = np.ascontiguousarray(
+        constants.literal_lut0(constants.LITERAL_PREDICTION_MODE_UTF8))
+    lut1 = np.ascontiguousarray(
+        constants.literal_lut1(constants.LITERAL_PREDICTION_MODE_UTF8))
+    return lut0, lut1
+
+
+@functools.lru_cache(maxsize=8)
+def _seg_luts_cached(profile_name: str, lo_bucketed: bool):
+    layout = ModelLayout(PROFILES[profile_name], lo_bucketed=lo_bucketed)
+    lut0, lut1 = _luts()
+    return _seg_array(layout), lut0, lut1, layout.segments["cm_second"][1][1]
+
+
+def _seg_luts(layout: ModelLayout):
+    return _seg_luts_cached(layout.profile.name, layout.lo_bucketed)
+
+
+@functools.lru_cache(maxsize=1)
+def _dict_arrays():
+    """RFC 7932 dictionary packed for the C++ decoder: (data u8[],
+    offsets u32[32], prefix/suffix pool u8[], tr_meta i32[ntr,5])."""
+    from . import dictionary
+    d = dictionary.load()
+    if not d.available:
+        return None
+    data = np.frombuffer(d.data, np.uint8)
+    offs = np.array(d.offsets_by_length, np.uint32)
+    pool = bytearray()
+    meta = np.zeros((len(d.transforms), 5), np.int32)
+    for i, (prefix, ttype, suffix) in enumerate(d.transforms):
+        meta[i] = (len(pool), len(prefix),
+                   ttype, len(pool) + len(prefix), len(suffix))
+        pool += prefix + suffix
+    return (data, offs, np.frombuffer(bytes(pool) or b"\0", np.uint8), meta)
+
+
+def _dict_args():
+    dct = _dict_arrays()
+    if dct is None:
+        return (None, 0, None, None, None, 0)
+    data, offs, pool, meta = dct
+    return (data.ctypes.data_as(ctypes.c_void_p), data.shape[0],
+            offs.ctypes.data_as(ctypes.c_void_p),
+            pool.ctypes.data_as(ctypes.c_void_p),
+            meta.ctypes.data_as(ctypes.c_void_p), meta.shape[0])
+
+
+# ------------------------------------------------------------------ encode
+
+def supports(options: DivansOptions) -> bool:
+    """Does the wholly-native encode (matcher + trace FSM + coder, no
+    Python command lists) cover these options?"""
+    return (options.quality < 11
+            and options.prior_depth == 0
+            and options.external_probs is None
+            and not options.block_split
+            and options.cmap_clustering == 0
+            and options.streaming_chunk_bytes == 0
+            and options.divans_ir_optimizer == 0
+            and not options.stride_detection_quality
+            and not options.speed_detection_quality
+            and not options.prior_bitmask_detection)
+
+
+def find_matches_optimal(data: bytes) -> np.ndarray:
+    """Cost-model optimal parse (native DP), int32[n,3] matches: the
+    native branch of divans_tpu/ir/matcher.find_matches_optimal at
+    quality 10 (chain depth 24, 2-entry candidate frontier, constant
+    literal cost, distance cost 40/16 + 7/16 * bitlen bits, no
+    dictionary edges)."""
+    lib = load()
+    n = len(data)
+    out = np.zeros((n // 2 + 8, 3), np.int32)
+    nm = lib.dtpu_parse_optimal(data, n, 24, 2, 0, 40, 7, None, None,
+                                out.ctypes.data_as(ctypes.c_void_p),
+                                out.shape[0])
+    if nm < 0:
+        raise RuntimeError("optimal parse overflowed its match buffer")
+    return out[:nm]
+
+
+def build_trace(raw: bytes, options: DivansOptions,
+                layout: ModelLayout) -> np.ndarray:
+    """raw bytes -> int32[n,10] trace (the mechanical trace FSM), for
+    options that `supports` accepts."""
+    lib = load()
+    n = len(raw)
+    if options.quality >= 10 and n >= 4:
+        matches = np.ascontiguousarray(find_matches_optimal(raw))
+        nm = matches.shape[0]
+        if nm == 0:
+            matches = np.zeros((1, 3), np.int32)
+    else:
+        matches = np.empty((max(1, n // 4 + 8), 3), np.int32)
+        nm = lib.dtpu_match(raw, n, options.quality,
+                            matches.ctypes.data_as(ctypes.c_void_p),
+                            matches.shape[0])
+        if nm < 0:
+            raise RuntimeError("match buffer overflow")
+    seg = _seg_array(layout)
+    speeds = options.literal_adaptation or (MUD, MUD, Speed(8, 8192),
+                                            Speed(8, 8192))
+    adapt = np.array([[s.inc, s.lim] for s in speeds], np.int32)
+    lut0, lut1 = _luts()
+    cap = 4 * n + 16384
+    out = np.empty((cap, 10), np.int32)
+    ns = lib.dtpu_build_trace(
+        raw, n,
+        matches.ctypes.data_as(ctypes.c_void_p), nm,
+        1 if options.use_context_map else 0,
+        min(options.dynamic_context_mixing, 7),
+        options.prior_depth,
+        max(1, options.force_stride_value),
+        adapt.ctypes.data_as(ctypes.c_void_p),
+        seg.ctypes.data_as(ctypes.c_void_p),
+        layout.segments["cm_second"][1][1], layout.lo_shift,
+        1 if layout.lo_bucketed else 0,
+        lut0.ctypes.data_as(ctypes.c_void_p),
+        lut1.ctypes.data_as(ctypes.c_void_p),
+        None,
+        out.ctypes.data_as(ctypes.c_void_p), cap)
+    if ns < 0:
+        raise NotImplementedError("the native trace builder abstained")
+    return out[:ns]
+
+
+def encode_streams(trace: np.ndarray, num_rows: int, chunk: int = 0,
+                   sel: int = 3, lit_base: int = 0) -> tuple[bytes, bytes]:
+    """trace int32[n,10] -> (cmd_bytes, lit_field).  chunk > 0 selects the
+    deferred profile (lit output = the deferred-v3 sub-stream field).
+    sel: bit0 = code the cmd stream, bit1 = lit."""
+    lib = load()
+    n = trace.shape[0]
+    trace = np.ascontiguousarray(trace, np.int32)
+    cap = 4 * n + 1024
+    cb = np.empty(cap, np.uint8)
+    lb = np.empty(cap, np.uint8)
+    cl = ctypes.c_int32(cap)
+    ll = ctypes.c_int32(cap)
+    rc = lib.dtpu_encode_streams_sel(
+        trace.ctypes.data_as(ctypes.c_void_p), n, num_rows, chunk,
+        lit_base, sel,
+        cb.ctypes.data_as(ctypes.c_void_p), ctypes.byref(cl),
+        lb.ctypes.data_as(ctypes.c_void_p), ctypes.byref(ll))
+    if rc != 0:
+        raise RuntimeError("stream buffer overflow")
+    return cb[:cl.value].tobytes(), lb[:ll.value].tobytes()
+
+
+def compress(data: bytes, options: DivansOptions | None = None) -> bytes:
+    """Host-native compress: byte-identical to divans_tpu.native.compress
+    on the options it covers.  Raises NotImplementedError on the rest
+    (quality 11, detection, block split, the IR optimizer)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from .container import format as fmt
+    from .codec.deferred import chunk_to_flags
+    from .codec.layout import PROFILE_FLAGS, profile_for_options
+
+    options = options or DivansOptions()
+    if not supports(options):
+        raise NotImplementedError(
+            "port compress covers quality <= 10 with the mechanical trace "
+            "only; quality 11, detection, block split, context-map "
+            "clustering, streaming and the IR optimizer are not ported")
+    profile = profile_for_options(options)
+    chunk = options.chunk_nibbles
+    layout = ModelLayout(PROFILES[profile], lo_bucketed=chunk > 0)
+    lit_base = layout.segments["lit_hi"][0]
+
+    def one(raw):
+        trace = build_trace(raw, options, layout)
+        cmd_b, lit_b = encode_streams(trace, layout.num_rows, chunk,
+                                      lit_base=lit_base)
+        return fmt.MetablockFrame(len(raw), cmd_b, lit_b)
+
+    mb = options.metablock_size
+    blocks = [data[off:off + mb] for off in range(0, len(data), mb)]
+    # metablocks are independent; ctypes releases the GIL
+    if len(blocks) > 1:
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+            frames = list(ex.map(one, blocks))
+    else:
+        frames = [one(b) for b in blocks]
+    # on these options the emitted profile is the layout's: a forced
+    # stride with the context map on puts a constant mask in every PM
+    # ("mix"), no context map is "stride", anything else "cm"
+    return fmt.serialize(frames, options.window_size, options.mb_log2,
+                         crc32c(data),
+                         flags=PROFILE_FLAGS[profile] | chunk_to_flags(chunk))
+
+
+# ------------------------------------------------------------------ decode
+
+def decode_metablock(cmd: bytes, lit: bytes, raw_len: int, use_cm: bool,
+                     layout: ModelLayout, chunk: int = 0) -> bytes | None:
+    """Native serial decode of one frame; None = out of profile."""
+    lib = load()
+    masked = 1 if layout.profile.hi_s_shape is not None else 0
+    seg, lut0, lut1, nctx = _seg_luts(layout)
+    out = np.zeros(max(1, raw_len), np.uint8)
+    rc = lib.dtpu_decode_metablock(
+        cmd or b"\0", len(cmd), lit or b"\0", len(lit), raw_len,
+        (1 if use_cm else 0) | (masked << 1), layout.num_rows, chunk,
+        seg.ctypes.data_as(ctypes.c_void_p), nctx, layout.lo_shift,
+        lut0.ctypes.data_as(ctypes.c_void_p),
+        lut1.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p), *_dict_args())
+    if rc != 0:
+        return None
+    return out[:raw_len].tobytes()
+
+
+class NativeScript:
+    """Command structure decoded natively from the cmd stream alone: the
+    host half of the deferred decode.  ops stay native (int32[n,3] plus a
+    dict-word pool) so execution is memcpy-speed C++."""
+
+    __slots__ = ("ops", "pool", "raw_len", "lit_total", "lcmap", "speeds",
+                 "supported")
+
+    def __init__(self, ops, pool, raw_len, lit_total, lcmap, speeds,
+                 supported):
+        self.ops = ops
+        self.pool = pool
+        self.raw_len = raw_len
+        self.lit_total = lit_total
+        self.lcmap = lcmap
+        self.speeds = speeds
+        self.supported = supported
+
+
+def decode_cmd_structure(cmd: bytes, raw_len: int, layout: ModelLayout,
+                         chunk: int) -> NativeScript | None:
+    """Native cmd-structure pass; None = out of profile."""
+    lib = load()
+    if chunk <= 0:
+        return None
+    seg, lut0, lut1, nctx = _seg_luts(layout)
+    dargs = _dict_args()
+    info = np.zeros(16, np.int32)
+    lcm_out = np.zeros(256, np.uint8)
+    ops_cap = raw_len // 4 + 4096
+    while True:
+        ops = np.zeros((ops_cap, 3), np.int32)
+        pool = np.zeros(raw_len + 64, np.uint8)
+        n = lib.dtpu_decode_cmd_structure(
+            cmd or b"\0", len(cmd), raw_len,
+            1 if layout.profile.name == "cm" else 0,
+            layout.num_rows, chunk,
+            seg.ctypes.data_as(ctypes.c_void_p), nctx, layout.lo_shift,
+            lut0.ctypes.data_as(ctypes.c_void_p),
+            lut1.ctypes.data_as(ctypes.c_void_p),
+            *dargs,
+            ops.ctypes.data_as(ctypes.c_void_p), ops_cap,
+            pool.ctypes.data_as(ctypes.c_void_p), pool.shape[0],
+            info.ctypes.data_as(ctypes.c_void_p),
+            lcm_out.ctypes.data_as(ctypes.c_void_p))
+        if n != -2:
+            break
+        ops_cap = 8 * raw_len + 8192  # guard bound; cannot overflow twice
+    if n < 0:
+        return None
+    speeds = [Speed(int(info[3 + 2 * i]), int(info[4 + 2 * i]))
+              for i in range(4)]
+    # device envelope: one PM, mixing on, a single literal block type
+    supported = info[2] == 1 and info[1] == 1 and info[12] <= 1
+    return NativeScript(ops[:n], pool[:info[11]].tobytes(), raw_len,
+                        int(info[0]), [int(v) for v in lcm_out[:64]],
+                        speeds, bool(supported))
+
+
+def execute_script(script: NativeScript, lit_bytes,
+                   out: np.ndarray | None = None) -> bytes | None:
+    """Replay a NativeScript with its decoded literal bytes (bytes or a
+    contiguous uint8 ndarray).  With `out` (a uint8 view of length
+    raw_len) the frame is written in place and None is returned."""
+    lib = load()
+    ops = np.ascontiguousarray(script.ops, np.int32)
+    if out is None:
+        dst = np.zeros(max(1, script.raw_len), np.uint8)
+    else:
+        # hard errors: a wrong-sized `out` would let the C side write
+        # past the caller's slice
+        if out.dtype != np.uint8 or out.size != script.raw_len:
+            raise ValueError(f"out must be uint8[{script.raw_len}], got "
+                             f"{out.dtype}[{out.size}]")
+        if not out.flags["C_CONTIGUOUS"]:
+            raise ValueError("out must be C-contiguous")
+        dst = out if script.raw_len else np.zeros(1, np.uint8)
+    if isinstance(lit_bytes, np.ndarray):
+        n_lit = lit_bytes.size
+        lbuf = lit_bytes.ctypes.data_as(ctypes.c_void_p) if n_lit else b"\0"
+    else:
+        n_lit = len(lit_bytes)
+        lbuf = lit_bytes or b"\0"
+    rc = lib.dtpu_execute_script(
+        ops.ctypes.data_as(ctypes.c_void_p), ops.shape[0],
+        lbuf, ctypes.c_int64(n_lit),
+        script.pool or b"\0", len(script.pool),
+        dst.ctypes.data_as(ctypes.c_void_p), script.raw_len)
+    if rc != 0:
+        raise CorruptStream("script execution failed", ErrCode.SCRIPT_FAILED)
+    if out is None:
+        return dst[:script.raw_len].tobytes()
+    return None

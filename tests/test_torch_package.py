@@ -1,0 +1,82 @@
+"""Package rules of the PyTorch port (divans_tpu_torch): it loads neither
+JAX nor the JAX package, it never quietly falls back to the CPU, and the
+repo's undefined-name lint covers it."""
+import ast
+import glob
+import importlib.util
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import divans_tpu_torch
+from divans_tpu_torch.codec import lit_decode
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(glob.glob(os.path.join(REPO, "divans_tpu_torch", "**",
+                                           "*.py"), recursive=True)) \
+    + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _rel(p):
+    return os.path.relpath(p, REPO)
+
+
+def test_import_loads_no_jax():
+    """In a fresh interpreter, importing the port (and chip_smoke, which
+    imports all of its modules) leaves no jax and no divans_tpu module."""
+    code = ("import sys; import divans_tpu_torch, chip_smoke; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'divans_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=_rel)
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        for root in roots:
+            assert root not in ("jax", "jaxlib", "divans_tpu"), \
+                f"{_rel(path)}:{node.lineno} imports {root}"
+
+
+def test_decompress_without_cuda_raises(monkeypatch):
+    blob = divans_tpu_torch.compress(
+        b"abc" * 1000, divans_tpu_torch.DivansOptions(chunk_nibbles=256))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        divans_tpu_torch.decompress(blob)
+    assert divans_tpu_torch.decompress(blob, device="cpu") == b"abc" * 1000
+
+
+def test_kernel_wrapper_rejects_other_devices():
+    """The wrapper takes the plain version only for CPU tensors; any
+    other device is the kernel's or an error, never a silent fallback."""
+    t = torch.zeros((1, 192, 16), dtype=torch.int16, device="meta")
+    with pytest.raises(ValueError):
+        lit_decode.lit_decode_chunk(t, t, t, t, t, 128)
+
+
+def _lint_module():
+    spec = importlib.util.spec_from_file_location(
+        "_repo_lint", os.path.join(REPO, "tests", "test_lint.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=_rel)
+def test_port_undefined_names(path):
+    """tests/test_lint.py's undefined-name check, over the port."""
+    _lint_module().test_no_undefined_names(path)
