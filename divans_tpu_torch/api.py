@@ -1,39 +1,66 @@
 """One-shot API of the port: compress() and decompress().
 
-compress runs on the host (native C++, byte-identical to
-divans_tpu.native.compress on the options it covers).  decompress
-decodes deferred containers (chunk_nibbles > 0) through
-codec/decode.decompress_frames on a device: "cuda" unless the caller
-passes device="cpu", where every kernel runs its plain PyTorch version.
+Both run the deferred profile (chunk_nibbles > 0) on a device: "cuda"
+unless the caller passes device="cpu", where every kernel runs its
+plain PyTorch version; with neither and no CUDA they raise.  compress
+is codec/encode.compress_frames (host C++ for the trace and the cmd
+stream, the card for the literals), byte-identical to
+divans_tpu.native.compress; native.compress is the host-only path.
+decompress is codec/decode.decompress_frames.
 """
 from __future__ import annotations
 
 import torch
 
 from . import native
-from .codec import decode
-from .codec.deferred import flags_to_chunk
-from .codec.layout import FLAG_PROFILES, ModelLayout, PROFILES
+from .codec import decode, encode
+from .codec.deferred import chunk_to_flags, flags_to_chunk
+from .codec.layout import (FLAG_PROFILES, PROFILE_FLAGS, ModelLayout,
+                           PROFILES, profile_for_options)
 from .container import format as fmt
 from .options import DivansOptions
 
 
-def compress(data: bytes, options: DivansOptions | None = None) -> bytes:
-    return native.compress(data, options)
-
-
-def _device(device) -> torch.device:
+def _device(device, entry: str) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("divans_tpu_torch.decompress runs on CUDA by "
+            raise RuntimeError(f"divans_tpu_torch.{entry} runs on CUDA by "
                                "default and no CUDA device is available; "
                                "pass device='cpu' to run the plain versions")
         return torch.device("cuda")
     return torch.device(device)
 
 
+def compress(data: bytes, options: DivansOptions | None = None,
+             device=None) -> bytes:
+    options = options or DivansOptions()
+    if not native.supports(options):
+        raise NotImplementedError(
+            "port compress covers quality <= 10 with the mechanical trace "
+            "only; quality 11, detection, block split, context-map "
+            "clustering, streaming and the IR optimizer are not ported")
+    chunk = options.chunk_nibbles
+    if not chunk:
+        raise NotImplementedError(
+            "the adaptive profile (chunk_nibbles=0) encodes through the "
+            "scan model pass, which is not ported yet (ROADMAP.md, "
+            "adaptive profile on device); native.compress covers it on "
+            "the host")
+    dev = _device(device, "compress")
+    profile = profile_for_options(options)
+    flags = PROFILE_FLAGS[profile] | chunk_to_flags(chunk)
+    frames = []
+    if data:
+        layout = ModelLayout(PROFILES[profile], lo_bucketed=True)
+        mb = options.metablock_size
+        blocks = [data[off:off + mb] for off in range(0, len(data), mb)]
+        frames = encode.compress_frames(blocks, options, layout, chunk, dev)
+    return fmt.serialize(frames, options.window_size, options.mb_log2,
+                         native.crc32c(data), flags=flags)
+
+
 def decompress(blob: bytes, device=None) -> bytes:
-    dev = _device(device)
+    dev = _device(device, "decompress")
     _w, _mb, frames, stored_crc, flags = fmt.deserialize(blob)
     if not frames:
         fmt.check_crc(b"", stored_crc)

@@ -12,8 +12,9 @@ Three stages, as in the reference:
   3. host C++ executes the command scripts (native.execute_script) into
      one preallocated output buffer, on a 2-thread finish pool.
 
-The commit is plain PyTorch on int32 tensors, as it was XLA (not Pallas)
-in the reference.  Layout is natural: per lane, a model of 385 rebased
+The commit is plain PyTorch on int32 tensors (codec/lit_model.py, shared
+with the encode's literal model pass), as it was XLA (not Pallas) in
+the reference.  Layout is natural: per lane, a model of 385 rebased
 literal rows x 16 CDF entries ([B, R, 16]).
 """
 from __future__ import annotations
@@ -29,16 +30,11 @@ import torch
 
 from .. import constants, native
 from ..probability import cdf16
-from ..probability.weights import (WEIGHT_MAX, bit_length_pos, fix_weights,
-                                   floor_div, norm_weight)
-from . import lit_decode
-from .deferred import ADJ_CLAMP, MAX_RENORM_PASSES, SUB_LIT, lit_subs_split
+from ..probability.weights import bit_length_pos
+from . import lit_decode, lit_model
+from .deferred import ADJ_CLAMP, SUB_LIT, lit_subs_split
 
 LANES = 128
-N_HI = 64
-N_LO = 128
-N_PLANES = 2 * N_HI + 2 * N_LO   # 384 kernel-order planes of the snapshot
-R_LIT = 385                      # rebased literal rows (row 0 unused)
 GROUP_CHUNKS = 128               # chunk slots per lane per issued group
 N_FINISHERS = 2
 
@@ -62,49 +58,6 @@ def lut_table() -> np.ndarray:
     mode = constants.LITERAL_PREDICTION_MODE_UTF8
     return np.concatenate([constants.literal_lut0(mode),
                            constants.literal_lut1(mode)]).astype(np.int32)
-
-
-def kernel_perm(layout):
-    """Static permutation: the 384 kernel-order planes -> rebased literal
-    rows ([lit_hi | cm_first | lit_lo | cm_second permuted to
-    (c3, hi)]), plus the rebased segment offsets."""
-    seg = layout.segments
-    lit_base = seg["lit_hi"][0]
-
-    def reb(name):
-        return seg[name][0] - (lit_base - 1)
-
-    hi_off, lo_off = reb("lit_hi"), reb("lit_lo")
-    cm1_off, cm2_off = reb("cm_first"), reb("cm_second")
-    perm = np.zeros(N_PLANES, np.int32)
-    perm[0:64] = hi_off + np.arange(64)
-    perm[64:128] = cm1_off + np.arange(64)
-    perm[128:256] = lo_off + np.arange(128)
-    for c3 in range(8):
-        for hi in range(16):
-            perm[256 + c3 * 16 + hi] = cm2_off + hi * 8 + c3
-    return perm, (hi_off, lo_off, cm1_off, cm2_off)
-
-
-def _renorm_bound_q(spd_all, s_bytes: int) -> int | None:
-    """Worst-case renorm passes of the commit from the per-stream speeds
-    [..., 6] = (inc, lim) x 3: a row's max is < lim + inc * s_bytes at
-    apply time and each pass maps m -> (m+16) - ((m+16) >> 2).  None when
-    a pair would need more than MAX_RENORM_PASSES."""
-    sp = np.asarray(spd_all).reshape(-1, 6)
-    pairs = {(int(i), int(l)) for r in sp
-             for i, l in (r[0:2], r[2:4], r[4:6]) if i}
-    p_max = 0
-    for inc, lim in pairs:
-        m = max(lim - 1, 64) + inc * s_bytes
-        p = 0
-        while m >= lim and p <= MAX_RENORM_PASSES:
-            m = (m + 16) - ((m + 16) >> 2)
-            p += 1
-        if p > MAX_RENORM_PASSES:
-            return None
-        p_max = max(p_max, p)
-    return p_max
 
 
 @dataclasses.dataclass
@@ -225,25 +178,6 @@ def _adj_tables(mix, cm, nib):
             for n in (cdf16.freqs_all(cm), cdf16.freqs_all(nib))]
 
 
-def _apply_pend(committed, weights, pend, n_pass: int):
-    """The boundary CDF rule and mixer rule of the deferred profile
-    (codec/deferred.py), for a whole lane batch."""
-    add, limsum, cnt, wadj = pend
-    committed = committed + add
-    lim_eff = torch.where(cnt > 0, floor_div(limsum, torch.clamp(cnt, min=1)),
-                          0x8000)
-    bias = torch.arange(1, 17, dtype=torch.int32, device=committed.device)
-    # masked passes: a row under its limit is left as it is, so n_pass
-    # passes equal the reference's loop (which stops once no row is over)
-    for _ in range(n_pass):
-        over = committed[..., 15] >= lim_eff
-        cb = committed + bias
-        committed = torch.where(over[..., None], cb - (cb >> 2), committed)
-    w01 = torch.clamp(weights[..., :2] + wadj, 1, WEIGHT_MAX)
-    w0, w1 = fix_weights(w01[..., 0], w01[..., 1])
-    return committed, torch.stack([w0, w1, norm_weight(w0, w1)], dim=-1)
-
-
 @torch.inference_mode()
 def decode_lanes(queues: LaneQueues, n_steps: int, chunk: int, layout,
                  device, chunk_fn=None, timing: list | None = None):
@@ -257,15 +191,9 @@ def decode_lanes(queues: LaneQueues, n_steps: int, chunk: int, layout,
     kernel start, kernel end, step end; the host seconds spent issuing
     the step): the commit is the step less the kernel."""
     chunk_fn = chunk_fn or lit_decode.lit_decode_chunk
-    perm_np, offs = kernel_perm(layout)
-    # the concatenated pend below relies on the rebased literal segments
-    # being contiguous in layout order
-    assert offs == (1, 65, 193, 257), offs
-    assert layout.num_rows - layout.segments["lit_hi"][0] + 1 == R_LIT
+    perm_np = lit_model.planes(layout)
     s = chunk // 2
-    n_renorm = _renorm_bound_q(queues.spd, s)
-    n_pass = (max(1, n_renorm) if n_renorm is not None and n_renorm <= 3
-              else MAX_RENORM_PASSES)
+    n_pass = lit_model.renorm_passes(queues.spd, s)
     dev = torch.device(device)
     q = queues.to(dev)
     words, counts, luts = q["words"], q["counts"], q["luts"]
@@ -273,18 +201,11 @@ def decode_lanes(queues: LaneQueues, n_steps: int, chunk: int, layout,
     i32 = dict(dtype=torch.int32, device=dev)
     lanes = torch.arange(b, device=dev)
     perm = torch.from_numpy(perm_np).long().to(dev)
-    # pend row hi*8+c3 (cm_second) <- count row c3*16+hi (lo plane index)
-    perm_cm2 = torch.tensor([(i % 8) * 16 + i // 8 for i in range(128)],
-                            device=dev)
+    perm2 = lit_model.perm_cm2(dev)
     byte_iota = torch.arange(s, **i32)
-    ones = torch.ones(b * s, **i32)
 
-    committed0 = cdf16.cdf_init((b, R_LIT), dev)
-    weights0 = torch.cat([torch.ones((b, 2, 2), **i32),
-                          torch.full((b, 2, 1), 1 << 14, **i32)], dim=2)
+    committed0, weights0, pend = lit_model.init_state(b, dev)
     committed, weights = committed0, weights0
-    pend = (torch.zeros((b, R_LIT, 16), **i32), torch.zeros((b, R_LIT), **i32),
-            torch.zeros((b, R_LIT), **i32), torch.zeros((b, 2, 2), **i32))
     fidx = torch.zeros(b, dtype=torch.long, device=dev)
     state = q["state0"][0].clone()
     cursor = q["woff"][0] * 2
@@ -292,14 +213,6 @@ def decode_lanes(queues: LaneQueues, n_steps: int, chunk: int, layout,
     p2 = torch.zeros(b, **i32)
     n_rem = q["n_lit"][0].clone()
     out = torch.empty((b, n_steps * s), dtype=torch.uint8, device=dev)
-
-    def seg(cnt, spd, inc_col, lim_col):
-        """(add, limsum, cnt) of one row class from its [B, P, 16] counts;
-        a speed with inc == 0 records nothing."""
-        inc = spd[:, inc_col, None]
-        tot = torch.sum(cnt, dim=-1, dtype=torch.int32) * (inc != 0)
-        add = inc[:, :, None] * torch.cumsum(cnt, dim=-1, dtype=torch.int32)
-        return add, spd[:, lim_col, None] * tot, tot
 
     for step in range(n_steps):
         if timing is not None:
@@ -344,16 +257,7 @@ def decode_lanes(queues: LaneQueues, n_steps: int, chunk: int, layout,
         hi, lo = byte >> 4, byte & 15
         ctx = ctx_c.long()
         active = byte_iota[None, :] < n_rem[:, None]
-        idx_hi = torch.where(active, lanes[:, None] * 1024 + ctx * 16 + hi,
-                             b * 1024)
-        cnt_hi = torch.zeros(b * 1024 + 1, **i32).index_add_(
-            0, idx_hi.reshape(-1), ones)[:-1].view(b, N_HI, 16)
-        idx_lo = torch.where(
-            active, lanes[:, None] * 2048 + ((ctx >> 3) * 16 + hi) * 16 + lo,
-            b * 2048)
-        cnt_lo = torch.zeros(b * 2048 + 1, **i32).index_add_(
-            0, idx_lo.reshape(-1), ones)[:-1].view(b, N_LO, 16)
-        cnt_cm2 = cnt_lo[:, perm_cm2]
+        cnt_hi, cnt_lo = lit_model.count_hists(ctx, hi, lo, active)
 
         # ---- mixer adjustments: count histograms against adj tables
         wadj_rows = []
@@ -365,17 +269,10 @@ def decode_lanes(queues: LaneQueues, n_steps: int, chunk: int, layout,
                  for a in _adj_tables(mix, cm, nib)], dim=-1))
         wadj = torch.stack([wadj_rows[1], wadj_rows[0]], dim=1)   # [B,2,2]
 
-        segs = [seg(cnt_hi, spd, 0, 1),     # lit_hi    <- speed 0
-                seg(cnt_lo, spd, 0, 1),     # lit_lo    <- speed 0
-                seg(cnt_hi, spd, 4, 5),     # cm_first  <- speed 3
-                seg(cnt_cm2, spd, 2, 3)]    # cm_second <- speed 2
-        zrow = torch.zeros((b, 1, 16), **i32)
-        new_pend = (torch.cat([zrow] + [x[0] for x in segs], dim=1),
-                    torch.cat([zrow[:, :, 0]] + [x[1] for x in segs], dim=1),
-                    torch.cat([zrow[:, :, 0]] + [x[2] for x in segs], dim=1),
-                    wadj)
+        new_pend = lit_model.chunk_pend(cnt_hi, cnt_lo, spd, wadj, perm2)
         # ---- commit the previous chunk's updates (lag 1)
-        committed, weights = _apply_pend(committed, weights, pend, n_pass)
+        committed, weights = lit_model.apply_pend(committed, weights, pend,
+                                                  n_pass)
         pend = new_pend
         state = sc_out[0]
         cursor = cursor + sc_out[3]

@@ -1,5 +1,5 @@
 """Chunk-deferred adaptation: the constants and wire helpers of the
-deferred profile that the decode slice needs (a copy of the subset of
+deferred profile that the port needs (a copy of the subset of
 divans_tpu/codec/deferred.py, whose module notes are normative).
 
 Within a chunk of S coded nibbles every model row and mixer weight is
@@ -19,6 +19,17 @@ SUB_LIT = 1 << 15   # literal bytes per lit sub-stream (deferred-v3)
 # container flags byte: bits 0-1 profile, bits 2-4 chunk code
 _CHUNK_SHIFT = 2
 _CHUNK_BITS = 0b111
+
+
+def lit_subs_join(subs: list[bytes]) -> bytes:
+    """Assemble a frame's lit field from its sub-stream payloads."""
+    from ..container.format import write_varint
+    out = bytearray(write_varint(len(subs)))
+    for s in subs[:-1]:
+        out += write_varint(len(s))
+    for s in subs:
+        out += s
+    return bytes(out)
 
 
 def lit_subs_split(lit_field: bytes) -> list[bytes]:

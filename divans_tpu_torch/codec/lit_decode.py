@@ -3,9 +3,9 @@ its plain PyTorch version.
 
 `lit_decode_chunk` is the port of the Pallas kernel
 divans_tpu/codec/pallas_decode.py:182 (`_make_lit_kernel`).  On a CUDA
-tensor it launches csrc/lit_decode.cu (built with nvcc for sm_90a at
-first use into divans_tpu_torch/_build/, bound through ctypes) or
-raises; on a CPU tensor it runs `lit_decode_chunk_plain`, the same
+tensor it launches csrc/lit_decode.cu (built by cuda_build with nvcc
+for sm_90a at first use, bound through ctypes) or raises; on a CPU
+tensor it runs `lit_decode_chunk_plain`, the same
 function written as a loop over the chunk's bytes with vector ops over
 the lanes.  The kernel source documents the contract.
 
@@ -18,88 +18,28 @@ uint8[B,s], ctx uint8[B,s], sc_out int32[4,B] (state, p1, p2, pulls).
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import torch
 
+from .. import cuda_build
 from ..ans.coder_np import RENORM_BITS, SCALE_MASK, STATE_LOW
 from ..constants import LOG2_SCALE
 from ..probability import cdf16
 
 N_HI = 64
 N_PLANES_MIX = 192
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "lit_decode.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-_SO = os.path.join(BUILD_DIR, "lit_decode.so")
+NAME = "lit_decode"
+_SIGNATURES = {"dtpu_lit_decode_chunk": [ctypes.c_void_p, ctypes.c_void_p,
+                                         ctypes.c_int] + [ctypes.c_void_p] * 6
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 # kernel launches, counted where the wrapper launches (and nowhere else)
 LAUNCHES = 0
-# nvcc's output of the last build (register and spill report)
-BUILD_LOG = ""
-
-_lib = None
-_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the literal-decode kernel is "
-                           "built with the CUDA toolkit")
-    return found
-
-
-def build() -> float:
-    """Compile csrc/lit_decode.cu for sm_90a (when the library is absent
-    or older than its source) and load it; returns the seconds spent."""
-    global _lib, BUILD_LOG
-    t0 = time.perf_counter()
-    with _lock:
-        if _lib is not None:
-            return 0.0
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(SOURCE)):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{_SO}.{os.getpid()}.tmp"
-            res = subprocess.run(
-                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", "-o", tmp, SOURCE],
-                capture_output=True, text=True)
-            BUILD_LOG = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed on lit_decode.cu:\n"
-                                   + BUILD_LOG)
-            os.replace(tmp, _SO)
-        lib = ctypes.CDLL(_SO)
-        fn = lib.dtpu_lit_decode_chunk
-        fn.restype = ctypes.c_int
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, vp]
-        _lib = lib
-    return time.perf_counter() - t0
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def build():
+    """csrc/lit_decode.cu, compiled for sm_90a at first use, loaded."""
+    return cuda_build.load(NAME, _SIGNATURES)
 
 
 def lit_decode_chunk(model, words, lcmap, luts, sc_in, s_bytes: int):
@@ -112,19 +52,20 @@ def lit_decode_chunk(model, words, lcmap, luts, sc_in, s_bytes: int):
     if dev.type != "cuda":
         raise ValueError(f"lit_decode_chunk runs on cuda or cpu, not {dev}")
     b = model.shape[0]
-    _check("model", model, torch.int16, (b, N_PLANES_MIX, 16), dev)
-    _check("words", words, torch.int32, (b, words.shape[1]), dev)
-    _check("lcmap", lcmap, torch.int32, (b, 64), dev)
-    _check("luts", luts, torch.int32, (512,), dev)
-    _check("sc_in", sc_in, torch.int32, (5, b), dev)
+    check = cuda_build.check
+    check("model", model, torch.int16, (b, N_PLANES_MIX, 16), dev)
+    check("words", words, torch.int32, (b, words.shape[1]), dev)
+    check("lcmap", lcmap, torch.int32, (b, 64), dev)
+    check("luts", luts, torch.int32, (512,), dev)
+    check("sc_in", sc_in, torch.int32, (5, b), dev)
     if words.shape[1] < 1 or s_bytes < 1:
         raise ValueError("empty word rows or chunk")
-    build()
+    lib = build()
     out_b = torch.empty((b, s_bytes), dtype=torch.uint8, device=dev)
     out_c = torch.empty((b, s_bytes), dtype=torch.uint8, device=dev)
     sc_out = torch.empty((4, b), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib.dtpu_lit_decode_chunk(
+    rc = lib.dtpu_lit_decode_chunk(
         model.data_ptr(), words.data_ptr(), words.shape[1],
         lcmap.data_ptr(), luts.data_ptr(), sc_in.data_ptr(),
         out_b.data_ptr(), out_c.data_ptr(), sc_out.data_ptr(),

@@ -8,8 +8,9 @@ library is absent).  The port binds it itself, with the calls it needs:
     script executor (`execute_script`) and the serial whole-frame decoder
     (`decode_metablock`) for frames outside the device envelope;
   * encode: the matcher and trace FSM (`build_trace`), the stream coder
-    (`encode_streams`) and `compress`, limited to what runs wholly in
-    C++ (quality <= 10, the mechanical trace);
+    (`encode_streams`), the literal packer of the device encode
+    (`pack_lit`) and the host-only `compress`, limited to what runs
+    wholly in C++ (quality <= 10, the mechanical trace);
   * `crc32c` (SSE4.2).
 
 There is no pure-Python engine behind it: if the library cannot be built
@@ -62,6 +63,7 @@ _SIGNATURES = {
                                   _P, _I, _P, _P, _P, _I, _P, _I, _P, _I,
                                   _P, _P],
     "dtpu_execute_script": [_P, _I, _P, ctypes.c_int64, _P, _I, _P, _I],
+    "dtpu_pack_lit": [_P, _I, _I, _P, _I, _P],
 }
 
 _lib = None
@@ -253,9 +255,32 @@ def encode_streams(trace: np.ndarray, num_rows: int, chunk: int = 0,
     return cb[:cl.value].tobytes(), lb[:ll.value].tobytes()
 
 
+def pack_lit(trace: np.ndarray, lit_base: int):
+    """Trace -> (packed lit row uint16[n_lit_bytes], spd int32[6],
+    lit_row_count), or None when the trace leaves the packed-byte
+    envelope (a dead first literal step, a non-cm row pattern).  One
+    uint16 per literal byte: ctx | hi<<6 | lo<<10 | act<<14 | mix<<15;
+    spd = (inc, lim) of speeds 0, 2, 3.  The C++ pass splits the stream
+    and rebases the rows itself (GIL-free)."""
+    lib = load()
+    n = trace.shape[0]
+    trace = np.ascontiguousarray(trace, np.int32)
+    cap = n // 2 + 8
+    row = np.empty(cap, np.uint16)
+    spd = np.zeros(6, np.int32)
+    cnt = lib.dtpu_pack_lit(
+        trace.ctypes.data_as(ctypes.c_void_p), n, lit_base,
+        row.ctypes.data_as(ctypes.c_void_p), cap,
+        spd.ctypes.data_as(ctypes.c_void_p))
+    if cnt < 0:
+        return None
+    return row[:cnt // 2], spd, cnt
+
+
 def compress(data: bytes, options: DivansOptions | None = None) -> bytes:
     """Host-native compress: byte-identical to divans_tpu.native.compress
-    on the options it covers.  Raises NotImplementedError on the rest
+    on the options it covers.  The reference the device encode
+    (codec/encode.py) is held against.  Raises NotImplementedError on the rest
     (quality 11, detection, block split, the IR optimizer)."""
     from concurrent.futures import ThreadPoolExecutor
     from .container import format as fmt

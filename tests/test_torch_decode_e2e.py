@@ -56,7 +56,8 @@ def test_reference_container_roundtrips_on_device_path(mb, size):
 def test_port_compress_roundtrips():
     data = _corpus(60000, seed=3)
     blob = port.compress(data, port.DivansOptions(metablock_size=1 << 14,
-                                                  chunk_nibbles=256))
+                                                  chunk_nibbles=256),
+                         device="cpu")
     assert _decode(blob) == data
 
 
@@ -73,7 +74,8 @@ def test_other_profiles_take_the_host_path(kw):
 
 
 def test_empty_input_roundtrips():
-    blob = port.compress(b"", port.DivansOptions(chunk_nibbles=256))
+    blob = port.compress(b"", port.DivansOptions(chunk_nibbles=256),
+                         device="cpu")
     assert _decode(blob) == b""
 
 

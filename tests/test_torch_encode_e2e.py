@@ -1,0 +1,128 @@
+"""The port's device encode end to end on the CPU:
+divans_tpu_torch.compress(device="cpu") runs the hybrid pipeline with
+each kernel's plain version and must give the container bytes of the
+JAX package's native.compress (and of its own hybrid device encode, run
+in Pallas interpret mode), byte for byte.  Inputs: the sorted
+divans_tpu sources, a slice of the vendored dictionary and
+numpy-seeded bytes."""
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from divans_tpu import native as jnative
+from divans_tpu.codec import jax_engine
+from divans_tpu.container import format as jfmt
+from divans_tpu.options import DivansOptions as JOptions
+
+import divans_tpu_torch as port
+from divans_tpu_torch.codec import decode, encode
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _corpus(n: int, seed: int, binary: float = 0.2) -> bytes:
+    """Text (the sorted divans_tpu sources) with a binary tail: half a
+    dictionary slice, half seeded random bytes."""
+    files = sorted(glob.glob(os.path.join(REPO, "divans_tpu", "**", "*.py"),
+                             recursive=True))
+    text = b"".join(open(f, "rb").read() for f in files)
+    d = open(os.path.join(REPO, "divans_tpu", "data", "rfc7932_dict.bin"),
+             "rb").read()
+    rng = np.random.default_rng(seed)
+    k = int(n * binary) // 2
+    start = int(rng.integers(0, len(text) - n))
+    return (text[start:start + n - 2 * k] + d[70000 + seed:70000 + seed + k]
+            + rng.integers(0, 256, k, dtype=np.uint8).tobytes())
+
+
+def _compress(data: bytes, **kw):
+    """(port bytes on the CPU, reference bytes, STATS of the port run)."""
+    kw = dict(dict(chunk_nibbles=256), **kw)
+    encode.STATS.update(device_frames=0, host_frames=0)
+    got = port.compress(data, port.DivansOptions(**kw), device="cpu")
+    return got, jnative.compress(data, JOptions(**kw)), dict(encode.STATS)
+
+
+def _n_frames(blob: bytes) -> int:
+    return len(jfmt.deserialize(blob)[2])
+
+
+@pytest.mark.parametrize("quality", [9, 10])
+@pytest.mark.parametrize("mb", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
+def test_compress_matches_native(mb, quality):
+    data = _corpus(70000, seed=mb.bit_length() + quality)
+    got, ref, stats = _compress(data, metablock_size=mb, quality=quality)
+    assert got == ref
+    assert stats == {"device_frames": _n_frames(ref), "host_frames": 0}
+
+
+def test_frame_with_several_sub_streams():
+    """A 64 KiB frame that is mostly random bytes holds more than SUB_LIT
+    (32 KiB) literals: its lit field has several sub-stream lanes."""
+    data = _corpus(60000, seed=11, binary=0.9)
+    got, ref, stats = _compress(data, metablock_size=1 << 16)
+    assert got == ref and stats["device_frames"] == 1
+    lit = jfmt.deserialize(ref)[2][0].lit
+    assert lit[0] >= 2, "expected a lit field with several sub-streams"
+
+
+def test_no_mixing_matches_native():
+    data = _corpus(50000, seed=12)
+    got, ref, _stats = _compress(data, metablock_size=1 << 14,
+                                 dynamic_context_mixing=0)
+    assert got == ref
+
+
+@pytest.mark.parametrize("kw", [dict(use_context_map=False),
+                                dict(force_stride_value=4)],
+                         ids=["stride_profile", "stride4"])
+def test_other_profiles_code_literals_on_the_host(kw):
+    """Frames outside the packed envelope (the stride and mix profiles)
+    have their literals coded on the host: the same bytes."""
+    data = _corpus(40000, seed=13)
+    got, ref, stats = _compress(data, metablock_size=1 << 14, **kw)
+    assert got == ref
+    assert stats == {"device_frames": 0, "host_frames": _n_frames(ref)}
+
+
+def test_roundtrip_through_port_decode():
+    data = _corpus(30000, seed=14)
+    blob = port.compress(data, port.DivansOptions(metablock_size=1 << 14,
+                                                  chunk_nibbles=256),
+                         device="cpu")
+    decode.STATS.update(device_frames=0, host_frames=0)
+    assert port.decompress(blob, device="cpu") == data
+    assert decode.STATS == {"device_frames": _n_frames(blob),
+                            "host_frames": 0}
+
+
+def test_matches_reference_hybrid_device_encode(monkeypatch):
+    """The JAX package's own hybrid pipeline (jax_engine._compress_hybrid,
+    reached by making jax_engine believe it runs on a TPU: its Pallas
+    kernels then run in interpret mode) gives the same bytes."""
+    monkeypatch.setattr(jax_engine, "_on_tpu", lambda: True)
+    data = _corpus(24000, seed=15)
+    kw = dict(metablock_size=8192, chunk_nibbles=256)
+    ref = jax_engine.compress(data, JOptions(**kw))
+    assert port.compress(data, port.DivansOptions(**kw), device="cpu") == ref
+
+
+def test_empty_input():
+    opts = dict(chunk_nibbles=256)
+    assert port.compress(b"", port.DivansOptions(**opts), device="cpu") == \
+        jnative.compress(b"", JOptions(**opts))
+
+
+def test_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.compress(b"abc" * 100, port.DivansOptions(chunk_nibbles=256))
+
+
+def test_adaptive_profile_is_not_ported():
+    with pytest.raises(NotImplementedError, match="adaptive profile"):
+        port.compress(b"abc" * 100, port.DivansOptions(chunk_nibbles=0),
+                      device="cpu")

@@ -22,7 +22,7 @@ from divans_tpu.probability import weights as jweights
 
 import divans_tpu_torch as port
 from divans_tpu_torch import constants, native
-from divans_tpu_torch.codec import decode, deferred, layout
+from divans_tpu_torch.codec import decode, deferred, layout, lit_model
 from divans_tpu_torch.container import crc32c, format as fmt
 from divans_tpu_torch.errors import CodedError
 from divans_tpu_torch.probability import cdf16, weights
@@ -136,7 +136,7 @@ def test_layout_matches_reference(name, bucketed):
 def test_kernel_perm_and_renorm_bound_match_reference():
     lay = layout.ModelLayout(layout.PROFILES["cm"], lo_bucketed=True)
     jlay = jlayout.ModelLayout(jlayout.PROFILES["cm"], lo_bucketed=True)
-    perm, offs = decode.kernel_perm(lay)
+    perm, offs = lit_model.kernel_perm(lay)
     jperm, joffs = jpd.kernel_perm(jlay)
     assert np.array_equal(perm, jperm) and offs == joffs
     rng = np.random.default_rng(2)
@@ -144,7 +144,8 @@ def test_kernel_perm_and_renorm_bound_match_reference():
         spd = rng.integers(0, 1 << 14, (3, 5, 6)).astype(np.int32)
         spd[..., 0::2] = rng.integers(0, 300, (3, 5, 3))
         for s in (32, 128, 512):
-            assert decode._renorm_bound_q(spd, s) == jpd._renorm_bound_q(spd, s)
+            assert (lit_model.renorm_bound_q(spd, s)
+                    == jpd._renorm_bound_q(spd, s))
 
 
 @pytest.mark.parametrize("chunk", [0, 16, 64, 256, 1024])
@@ -250,14 +251,14 @@ def test_wrap_i16_matches_reference():
     assert np.array_equal(weights.wrap_i16(_t(x)).numpy(), jcdf16.wrap_i16(x))
 
 
-# ----------------------------------------------------------- native compress
+# ------------------------------------------- native (host-only) compress
 
 @pytest.mark.parametrize("quality", [9, 10])
 @pytest.mark.parametrize("mb", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
 def test_compress_matches_reference(mb, quality):
     data = _text(70000) + _binary(30000) + _text(120000)[70000:]
     kw = dict(metablock_size=mb, chunk_nibbles=256, quality=quality)
-    assert port.compress(data, port.DivansOptions(**kw)) == \
+    assert native.compress(data, port.DivansOptions(**kw)) == \
         jnative.compress(data, JOptions(**kw))
 
 
@@ -270,7 +271,7 @@ def test_compress_matches_reference(mb, quality):
 def test_compress_profiles_match_reference(kw):
     data = _text(40000) + _binary(8000)
     kw = dict(dict(metablock_size=1 << 14, chunk_nibbles=256), **kw)
-    assert port.compress(data, port.DivansOptions(**kw)) == \
+    assert native.compress(data, port.DivansOptions(**kw)) == \
         jnative.compress(data, JOptions(**kw))
 
 
@@ -279,4 +280,5 @@ def test_compress_profiles_match_reference(kw):
                                 dict(divans_ir_optimizer=1)])
 def test_compress_raises_outside_native(kw):
     with pytest.raises(NotImplementedError):
-        port.compress(b"hello world" * 100, port.DivansOptions(**kw))
+        port.compress(b"hello world" * 100, port.DivansOptions(**kw),
+                      device="cpu")

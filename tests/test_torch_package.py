@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import divans_tpu_torch
-from divans_tpu_torch.codec import lit_decode
+from divans_tpu_torch.ans import rans_encode
+from divans_tpu_torch.codec import lit_decode, lit_pass
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(glob.glob(os.path.join(REPO, "divans_tpu_torch", "**",
@@ -53,19 +54,32 @@ def test_no_jax_or_reference_imports(path):
 
 def test_decompress_without_cuda_raises(monkeypatch):
     blob = divans_tpu_torch.compress(
-        b"abc" * 1000, divans_tpu_torch.DivansOptions(chunk_nibbles=256))
+        b"abc" * 1000, divans_tpu_torch.DivansOptions(chunk_nibbles=256),
+        device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         divans_tpu_torch.decompress(blob)
     assert divans_tpu_torch.decompress(blob, device="cpu") == b"abc" * 1000
 
 
-def test_kernel_wrapper_rejects_other_devices():
-    """The wrapper takes the plain version only for CPU tensors; any
+def _meta(shape, dtype):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: lit_decode.lit_decode_chunk(
+        *[_meta((1, 192, 16), torch.int16)] * 5, 128),
+    lambda: lit_pass.lit_pass(_meta((1, 128), torch.uint16),
+                              _meta((1, 6), torch.int32),
+                              _meta((1,), torch.int32), 256),
+    lambda: rans_encode.encode_lanes(*[_meta((1, 512), torch.int32)] * 2,
+                                     _meta((1,), torch.int32)),
+], ids=["lit_decode", "lit_pass", "rans_encode"])
+def test_kernel_wrapper_rejects_other_devices(call):
+    """Each wrapper takes the plain version only for CPU tensors; any
     other device is the kernel's or an error, never a silent fallback."""
-    t = torch.zeros((1, 192, 16), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError):
-        lit_decode.lit_decode_chunk(t, t, t, t, t, 128)
+        call()
 
 
 def _lint_module():
