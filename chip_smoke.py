@@ -5,16 +5,16 @@
 
 Phases, each printing its line; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi) and CUDA;
-  2. build: the three kernels (csrc/lit_decode.cu, lit_pass.cu,
-     rans_encode.cu), one nvcc each, all started together, and the host
-     C++ library;
+  2. build: the four kernels (csrc/lit_decode.cu, lit_pass.cu,
+     rans_encode.cu, cmd_pass.cu), one nvcc each, all started together,
+     and the host C++ library;
   3. a 48 MiB corpus, and its host-only container (native.compress,
      metablock 2^18, chunk_nibbles 256): the reference bytes;
   4. encode kernels against their plain versions: the main path's first
      batch (the corpus's first HYBRID_BATCH frames, packed its way) goes
      through the literal model pass twice on the card, kernel and plain
      PyTorch version (equal starts and freqs), then through the rANS
-     encode twice (equal flags, flagged words, word counts and states);
+     encode twice (equal flags, flagged words, header and states);
   5. encode main path: after one warm encode, the corpus is compressed
      on the card through divans_tpu_torch.compress three times; the
      container must equal the reference bytes, both encode kernels must
@@ -28,9 +28,29 @@ Phases, each printing its line; any failure raises and exits non-zero:
   7. decode main path: after one warm decode, the container is
      decompressed on the card through divans_tpu_torch.decompress three
      times; the output must equal the corpus, the kernel must have
-     launched and no frame may have left the device path.
-Then one JSON line with the kernels' numbers, and as the last line
-{"ok": true, "device": {...}}.  Needs CUDA; exits non-zero without it.
+     launched and no frame may have left the device path;
+  8. quality 11: the corpus's first 16 MiB and its host-only quality-11
+     container (native.compress: the matcher's command lists with
+     dictionary edges through the trace FSM): the reference bytes;
+  9. quality-11 encode kernels against their plain versions on that
+     path's first batch, packed its way (all 16 lanes live): the cmd
+     model pass and the rANS encode on the cmd lanes, the literal model
+     pass and the rANS encode on the lit lanes, compared as in phase 4;
+ 10. quality-11 encode main path (the uniform device lanes): after one
+     warm encode, divans_tpu_torch.compress three times; the container
+     must equal the reference bytes, the cmd pass, lit pass and rANS
+     kernels must have launched and every frame's cmd stream and
+     literals must have been coded on the card;
+ 11. decode kernel against its plain version on the quality-11
+     container's first lane group, as in phase 6 (every lane that has a
+     job live);
+ 12. quality-11 round trip: divans_tpu_torch.decompress of that
+     container on the card equals the 16 MiB, no frame on the host.
+Each path's launches are counted with the counts set to 0 just before
+its run.  Then one JSON line with the kernels' numbers, one entry for
+each kernel and path (the kernel's launches on that path, its
+comparison on that path's inputs), and as the last line {"ok": true,
+"device": {...}}.  Needs CUDA; exits non-zero without it.
 """
 from __future__ import annotations
 
@@ -49,12 +69,14 @@ import torch
 import divans_tpu_torch as dt
 from divans_tpu_torch import cuda_build, native
 from divans_tpu_torch.ans import rans_encode
-from divans_tpu_torch.codec import decode, encode, lit_decode, lit_pass
-from divans_tpu_torch.codec.deferred import SUB_LIT, flags_to_chunk
+from divans_tpu_torch.codec import (cmd_pass, decode, encode, lit_decode,
+                                    lit_pass)
+from divans_tpu_torch.codec.deferred import SUB_LIT, cmd_chunk, flags_to_chunk
 from divans_tpu_torch.codec.layout import ModelLayout, PROFILES
 from divans_tpu_torch.container import format as fmt
 
 CORPUS_BYTES = 48 << 20
+Q11_BYTES = 16 << 20     # the quality-11 corpus: the first 16 MiB
 MB_SIZE = 1 << 18
 CHUNK = 256
 # peaks of one H100 SXM at 700 W (NVIDIA's data sheet and Hopper
@@ -69,11 +91,16 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # one entry each, five exact floor divisions, the adjustment, two
 # histogram atomics) and ~4 a model entry in each chunk's commit (384
 # rows x 16 entries); the rANS encode ~40 a symbol (a compare, a shift,
-# one floor division, the update, the loads and stores)
+# one floor division, the update, the loads and stores); the cmd model
+# pass ~90 a step (three row-entry loads, two exact floor divisions, the
+# histogram atomic, the stores) and ~6 a model entry in each chunk's
+# commit (R rows x 16 entries; renorm passes not counted)
 LIT_PASS_OPS_PER_NIBBLE = 250
 LIT_PASS_OPS_PER_ENTRY = 4
 RANS_OPS_PER_SYMBOL = 40
-KERNEL_MODULES = (lit_decode, lit_pass, rans_encode)
+CMD_PASS_OPS_PER_STEP = 90
+CMD_PASS_OPS_PER_ENTRY = 6
+KERNEL_MODULES = (lit_decode, lit_pass, rans_encode, cmd_pass)
 
 
 def build_corpus(target: int) -> bytes:
@@ -179,26 +206,30 @@ def _entry(ms, plain_ms, n_bytes, n_ops, max_err) -> dict:
             "n_bytes": n_bytes, "n_ops": n_ops}
 
 
-def phase_encode_compare(corpus: bytes, device, smi: str) -> dict:
-    """Both encode kernels against their plain versions on the main
-    path's first batch; returns their entries (max_abs_err, ms, plain_ms,
-    bound)."""
-    opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK)
+def _first_batch(corpus: bytes, opts):
+    """The host side of the main path's first batch (the corpus's first
+    HYBRID_BATCH frames, host_frame on 8 threads)."""
     layout = ModelLayout(PROFILES["cm"], lo_bucketed=True)
     blocks = [corpus[o:o + MB_SIZE]
               for o in range(0, encode.HYBRID_BATCH * MB_SIZE, MB_SIZE)]
     with ThreadPoolExecutor(8) as ex:
         got = list(ex.map(lambda b: encode.host_frame(b, opts, layout, CHUNK),
                           blocks))
-    assert all(g[1] is not None for g in got), "a frame left the envelope"
+    assert all(g.lit_row is not None for g in got), \
+        "a frame's literals left the card"
+    return got
+
+
+def _lit_pass_compare(got, device, tag: str, smi: str):
+    """The literal model pass, kernel against plain, on the batch's lit
+    lanes, packed the main path's way; returns (entry, the kernel's
+    starts, freqs, the lanes' counts)."""
     rows, spds, _spans = encode.batch_lanes(got)
     packed, spd, n_nib = (torch.from_numpy(a).to(device)
                           for a in encode.batch_inputs(rows, spds, CHUNK))
     b, n = packed.shape[0], 2 * packed.shape[1]
     live = int((n_nib > 0).sum())
     n_sym = int(n_nib.sum())
-
-    # ---- literal model pass: kernel vs plain on the same tensors
     (st_p, fr_p), plain_ms = _cuda_ms_once(
         lambda: lit_pass.lit_pass_plain(packed, spd, n_nib, CHUNK))
     st_k, fr_k = lit_pass.lit_pass(packed, spd, n_nib, CHUNK)
@@ -209,40 +240,69 @@ def phase_encode_compare(corpus: bytes, device, smi: str) -> dict:
     lane_chunks = int(((n_nib + CHUNK - 1) // CHUNK).sum())
     # bytes: each live literal byte read once (2 B), speeds and counts,
     # starts and freqs written once; operations per nibble and per commit
-    lp = _entry(ms, plain_ms, n_sym + b * 28 + 8 * b * n,
-                LIT_PASS_OPS_PER_NIBBLE * n_sym
-                + LIT_PASS_OPS_PER_ENTRY * 384 * 16 * lane_chunks, err)
+    e = _entry(ms, plain_ms, n_sym + b * 28 + 8 * b * n,
+               LIT_PASS_OPS_PER_NIBBLE * n_sym
+               + LIT_PASS_OPS_PER_ENTRY * 384 * 16 * lane_chunks, err)
+    print(f"[{tag}] lit lanes: {b} lanes, {live} live, {n_sym} nibbles, N "
+          f"{n} | lit_pass kernel == plain on starts, freqs (max_abs_err "
+          f"{err}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{e['bound_ms']:.6f} ms by {e['bound_by']} ({e['n_bytes']} B, "
+          f"{e['n_ops']} ops) | {smi}")
+    return e, st_k, fr_k, n_nib
 
-    # ---- rANS encode of the kernel's (start, freq): kernel vs plain
-    (w_p, f_p, s_p), plain_ms_r = _cuda_ms_once(
-        lambda: rans_encode.encode_lanes_plain(st_k, fr_k, n_nib))
-    w_k, f_k, s_k = rans_encode.encode_lanes(st_k, fr_k, n_nib)
-    h_p = rans_encode.compact_global(w_p, f_p, n_nib, s_p)[1]
-    h_k = rans_encode.compact_global(w_k, f_k, n_nib, s_k)[1]
+
+def _rans_compare(st, fr, counts, tag: str, lanes: str, smi: str) -> dict:
+    """The rANS encode, kernel against plain, of a model pass's (start,
+    freq): equal flags, flagged words, compact header and states."""
+    b, n = st.shape
+    n_sym = int(counts.sum())
+    (w_p, f_p, s_p), plain_ms = _cuda_ms_once(
+        lambda: rans_encode.encode_lanes_plain(st, fr, counts))
+    w_k, f_k, s_k = rans_encode.encode_lanes(st, fr, counts)
+    h_p = rans_encode.compact_global(w_p, f_p, counts, s_p)[1]
+    h_k = rans_encode.compact_global(w_k, f_k, counts, s_k)[1]
     torch.cuda.synchronize()
     flagged = f_k != 0
-    err_r = _max_err([(f_k, f_p), (s_k, s_p), (h_k, h_p),
-                      (w_k[flagged], w_p[flagged])])
-    assert err_r == 0, f"encode_lanes kernel differs from its plain version " \
-        f"by {err_r}"
-    ms_r = _cuda_ms(lambda: rans_encode.encode_lanes(st_k, fr_k, n_nib), 20)
+    err = _max_err([(f_k, f_p), (s_k, s_p), (h_k, h_p),
+                    (w_k[flagged], w_p[flagged])])
+    assert err == 0, f"encode_lanes kernel differs from its plain version " \
+        f"on the {lanes} by {err}"
+    ms = _cuda_ms(lambda: rans_encode.encode_lanes(st, fr, counts), 20)
     n_words = int(h_k[0].sum())
     # bytes: starts and freqs of each coded symbol read once, counts,
     # words and flags written once over [B, N], states
-    re_ = _entry(ms_r, plain_ms_r, 8 * n_sym + 4 * b + 3 * b * n + 4 * b,
-                 RANS_OPS_PER_SYMBOL * n_sym, err_r)
-    print(f"[enc-compare] first batch ({len(blocks)} frames of {MB_SIZE} B):"
-          f" {b} lanes, {live} live, {n_sym} nibbles, N {n}, chunk {CHUNK}")
-    print(f"[enc-compare] lit_pass kernel == plain on starts, freqs "
-          f"(max_abs_err {err}): kernel {ms:.4f} ms, plain {plain_ms:.2f} "
-          f"ms, bound {lp['bound_ms']:.6f} ms by {lp['bound_by']} "
-          f"({lp['n_bytes']} B, {lp['n_ops']} ops) | {smi}")
-    print(f"[enc-compare] encode_lanes kernel == plain on flags, flagged "
-          f"words, nw, states (max_abs_err {err_r}, {n_words} words): "
-          f"kernel {ms_r:.4f} ms, plain {plain_ms_r:.2f} ms, bound "
-          f"{re_['bound_ms']:.6f} ms by {re_['bound_by']} ({re_['n_bytes']}"
-          f" B, {re_['n_ops']} ops); its real limit is the serial chain "
-          f"per lane | {smi}")
+    e = _entry(ms, plain_ms, 8 * n_sym + 4 * b + 3 * b * n + 4 * b,
+               RANS_OPS_PER_SYMBOL * n_sym, err)
+    print(f"[{tag}] {lanes}: {b} lanes, {n_sym} symbols, N {n} | "
+          f"encode_lanes kernel == plain on flags, flagged words, header, "
+          f"states (max_abs_err {err}, {n_words} words): kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.2f} ms, bound {e['bound_ms']:.6f} ms by "
+          f"{e['bound_by']} ({e['n_bytes']} B, {e['n_ops']} ops); its real "
+          f"limit is the serial chain per lane | {smi}")
+    return e
+
+
+def _sum_entries(parts: list[dict]) -> dict:
+    """One batch's launches of a kernel as one entry: the times, bytes
+    and operations summed, the worst error."""
+    return _entry(sum(p["ms"] for p in parts),
+                  sum(p["plain_ms"] for p in parts),
+                  sum(p["n_bytes"] for p in parts),
+                  sum(p["n_ops"] for p in parts),
+                  max(p["max_abs_err"] for p in parts))
+
+
+def phase_encode_compare(corpus: bytes, device, smi: str) -> dict:
+    """Both encode kernels against their plain versions on the quality-10
+    main path's first batch; returns their entries (max_abs_err, ms,
+    plain_ms, bound)."""
+    opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK)
+    got = _first_batch(corpus, opts)
+    tag = "enc-compare"
+    print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B, chunk "
+          f"{CHUNK}")
+    lp, st, fr, n_nib = _lit_pass_compare(got, device, tag, smi)
+    re_ = _rans_compare(st, fr, n_nib, tag, "lit lanes", smi)
     return {"lit_pass": lp, "encode_lanes": re_}
 
 
@@ -256,7 +316,7 @@ def phase_encode_main(corpus: bytes, ref: bytes, smi: str) -> dict:
     for run in range(3):
         if run == 0:
             lit_pass.LAUNCHES = rans_encode.LAUNCHES = 0
-            encode.STATS.update(device_frames=0, host_frames=0)
+            encode.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         blob = dt.compress(corpus, opts)
@@ -268,14 +328,21 @@ def phase_encode_main(corpus: bytes, ref: bytes, smi: str) -> dict:
             stats = dict(encode.STATS)
         assert blob == ref, "device encode differs from native.compress"
     assert all(launches.values()), f"an encode kernel never ran: {launches}"
-    assert stats == {"device_frames": n_frames, "host_frames": 0}, stats
+    assert stats == {"cmd_device": 0, "cmd_host": n_frames,
+                     "lit_device": n_frames, "lit_host": 0}, stats
     mbps = len(corpus) / min(times) / 1e6
     print(f"[enc-main] encode e2e {mbps:.2f} MB/s best of 3 after a warm one "
           f"({', '.join(f'{t:.3f}' for t in times)} s), output == "
           f"native.compress | launches {launches} per encode, frames "
           f"{stats} | {smi}")
 
-    # one more encode with CUDA events around each batch's device stages
+    _timed_encode(corpus, ref, opts, "enc-main", smi)
+    return launches
+
+
+def _timed_encode(corpus: bytes, ref: bytes, opts, tag: str, smi: str):
+    """One more encode with CUDA events around each batch's device
+    stages; prints their device time and the issuing thread's wait."""
     blocks = [corpus[o:o + MB_SIZE] for o in range(0, len(corpus), MB_SIZE)]
     timing: list = []
     t0 = time.perf_counter()
@@ -284,24 +351,27 @@ def phase_encode_main(corpus: bytes, ref: bytes, smi: str) -> dict:
         torch.device("cuda"), timing=timing)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    assert [f.lit for f in frames] == [f.lit for f in fmt.deserialize(ref)[2]]
-    stage_ms = [sum(e[k].elapsed_time(e[k + 1]) for e, _w in timing)
-                for k in range(3)]
-    wait_s = sum(w for _e, w in timing)
-    print(f"[enc-main] timed encode ({len(timing)} batches, {wall:.3f} s "
-          f"wall): lit_pass {stage_ms[0]:.1f} ms, encode_lanes "
-          f"{stage_ms[1]:.1f} ms, compaction and copy {stage_ms[2]:.1f} ms "
-          f"(device timeline); the issuing thread waited {wait_s:.3f} s "
-          f"for the host C++ stages | {smi}")
-    return launches
+    assert [(f.cmd, f.lit) for f in frames] == \
+        [(f.cmd, f.lit) for f in fmt.deserialize(ref)[2]]
+    stage_ms: dict = {}
+    for marks, _w in timing:
+        for (name, e0), (_n, e1) in zip(marks, marks[1:]):
+            stage_ms[name] = stage_ms.get(name, 0.0) + e0.elapsed_time(e1)
+    wait_s = sum(w for _m, w in timing)
+    stages = ", ".join(f"{k} {v:.1f} ms" for k, v in stage_ms.items())
+    print(f"[{tag}] timed encode ({len(timing)} batches, {wall:.3f} s "
+          f"wall): {stages} (device timeline); the issuing thread waited "
+          f"{wait_s:.3f} s for the host stages | {smi}")
+    return stage_ms
 
 
 def _first_group(blob: bytes):
     """The main path's first lane group, built its way (decode_structure,
     lane_jobs, pack_lane_queues) from the container's leading frames:
     frames are taken until the group holds decompress_frames' chunk
-    target, and on until every lane has a job.  Returns (LaneQueues,
-    n_steps, layout, chunk, n_frames)."""
+    target, and on until every lane has a job (or the frames run out).
+    Returns (LaneQueues, n_steps, layout, chunk, n_frames, the lanes that
+    have a job)."""
     _w, _mb, frames, _crc, flags = fmt.deserialize(blob)
     chunk = flags_to_chunk(flags)
     layout = ModelLayout(PROFILES["cm"], lo_bucketed=True)
@@ -315,11 +385,11 @@ def _first_group(blob: bytes):
         if (need >= decode.LANES * decode.GROUP_CHUNKS
                 and n_jobs >= decode.LANES):
             break
-    assert n_jobs >= decode.LANES, (n_jobs, "jobs: too few for every lane")
     streams, n_lits, lcmaps, spds, _spans = decode.lane_jobs(frames, ready)
     queues, n_steps, _placement = decode.pack_lane_queues(
         streams, n_lits, lcmaps, spds, chunk)
-    return queues, n_steps, layout, chunk, len(ready)
+    return (queues, n_steps, layout, chunk, len(ready),
+            min(decode.LANES, n_jobs))
 
 
 def phase_reference(corpus: bytes) -> bytes:
@@ -337,11 +407,11 @@ def phase_reference(corpus: bytes) -> bytes:
     return blob
 
 
-def phase_compare(blob: bytes, device) -> dict:
+def phase_compare(blob: bytes, device, tag: str) -> dict:
     """Kernel against its plain version on every chunk of the main path's
-    first lane group (every lane live); returns the kernel's entry
-    numbers (max_abs_err, ms, plain_ms, bound)."""
-    queues, n_steps, layout, chunk, n_frames = _first_group(blob)
+    first lane group (every lane that has a job live); returns the
+    kernel's entry numbers (max_abs_err, ms, plain_ms, bound)."""
+    queues, n_steps, layout, chunk, n_frames, n_lanes = _first_group(blob)
     runs = {"kernel": [], "plain": []}
     busiest = [-1, None]   # the chunk with the most bytes to decode
     max_live = [0]         # most lanes live in one chunk
@@ -375,7 +445,8 @@ def phase_compare(blob: bytes, device) -> dict:
             assert err == 0, f"chunk {step}: kernel {name} differs by {err}"
     assert torch.equal(out_k, out_p)
     b = out_k.shape[0]
-    assert max_live[0] == b, f"only {max_live[0]} of {b} lanes decoded"
+    assert max_live[0] == n_lanes, \
+        f"{max_live[0]} lanes decoded, {n_lanes} have a job"
 
     n_act, (model, words, lcmap, luts, sc_in) = busiest
     s = chunk // 2
@@ -398,8 +469,9 @@ def phase_compare(blob: bytes, device) -> dict:
     n_ops = 64 * 2 * n_act
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / INT32_OPS_PER_S * 1e3
-    print(f"[dec-compare] first lane group ({n_frames} frames): {n_steps} "
-          f"chunks x {b} lanes, all {b} lanes live: kernel == plain on "
+    print(f"[{tag}] first lane group ({n_frames} frames): {n_steps} "
+          f"chunks x {b} lanes, {max_live[0]} lanes live (every lane with "
+          f"a job): kernel == plain on "
           f"bytes, ctx, state, p1, p2, pulls (max_abs_err {max_err}) | "
           f"busiest chunk ({n_live} lanes live, {n_act} bytes decoded, "
           f"{n_bytes} bytes moved): kernel {ms:.4f} ms, plain "
@@ -455,6 +527,128 @@ def phase_main(blob: bytes, corpus: bytes, device, smi: str) -> int:
     return launches
 
 
+def q11_options():
+    return dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK,
+                            quality=11)
+
+
+def phase_q11_reference(corpus16: bytes) -> bytes:
+    """The quality-11 corpus's container from the host-only path
+    (native.compress at quality 11): the bytes its device encode must
+    equal."""
+    t0 = time.perf_counter()
+    blob = native.compress(corpus16, q11_options())
+    t_enc = time.perf_counter() - t0
+    print(f"[q11-reference] native.compress quality 11 (host only, the "
+          f"dictionary index included): {len(corpus16)} bytes -> "
+          f"{len(blob)} ({len(blob) / len(corpus16):.4f}), "
+          f"{len(fmt.deserialize(blob)[2])} frames, {t_enc:.2f} s")
+    return blob
+
+
+def phase_q11_compare(corpus16: bytes, device, smi: str) -> dict:
+    """The three encode kernels against their plain versions on the
+    quality-11 main path's first batch, packed its way: the cmd model
+    pass and the rANS encode on the cmd lanes, the literal model pass
+    and the rANS encode on the lit lanes.  Returns their entries, the
+    rANS encode's two launches summed."""
+    got = _first_batch(corpus16, q11_options())
+    assert all(g.cmd_row is not None for g in got), \
+        "a frame's cmd stream left the card"
+    tag = "q11-compare"
+    s = cmd_chunk(CHUNK)
+    packed, inc, lim, n_steps = (
+        torch.from_numpy(a).to(device)
+        for a in encode.cmd_batch_inputs(got, s))
+    b, n = packed.shape
+    r = inc.shape[1]
+    live = int((n_steps > 0).sum())
+    assert live == b == len(got), (live, b)
+    (st_p, fr_p), plain_ms = _cuda_ms_once(
+        lambda: cmd_pass.cmd_pass_plain(packed, inc, lim, n_steps, s))
+    st_k, fr_k = cmd_pass.cmd_pass(packed, inc, lim, n_steps, s)
+    torch.cuda.synchronize()
+    err = _max_err([(st_k, st_p), (fr_k, fr_p)])
+    assert err == 0, f"cmd_pass kernel differs from its plain version by {err}"
+    ms = _cuda_ms(lambda: cmd_pass.cmd_pass(packed, inc, lim, n_steps, s), 20)
+    n_sym = int(n_steps.sum())
+    lane_chunks = int(((n_steps + s - 1) // s).sum())
+    # bytes: each step read once (2 B), the row speeds and counts, starts
+    # and freqs written once over [B, N]; operations per step and per
+    # commit
+    cmd = _entry(ms, plain_ms, 2 * n_sym + 8 * b * r + 4 * b + 8 * b * n,
+                 CMD_PASS_OPS_PER_STEP * n_sym
+                 + CMD_PASS_OPS_PER_ENTRY * r * 16 * lane_chunks, err)
+    print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B | cmd "
+          f"lanes: {b} lanes, {live} live, {n_sym} cmd steps, N {n}, {r} "
+          f"rows, chunk {s} steps | cmd_pass kernel == plain on starts, "
+          f"freqs (max_abs_err {err}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {cmd['bound_ms']:.6f} ms by "
+          f"{cmd['bound_by']} ({cmd['n_bytes']} B, {cmd['n_ops']} ops) | "
+          f"{smi}")
+    re_cmd = _rans_compare(st_k, fr_k, n_steps, tag, "cmd lanes", smi)
+    lp, st, fr, n_nib = _lit_pass_compare(got, device, tag, smi)
+    re_lit = _rans_compare(st, fr, n_nib, tag, "lit lanes", smi)
+    return {"cmd_pass": cmd, "lit_pass": lp,
+            "encode_lanes": _sum_entries([re_cmd, re_lit])}
+
+
+def phase_q11_main(corpus16: bytes, ref: bytes, smi: str) -> dict:
+    """The quality-11 encode (uniform device lanes) at full size on the
+    card; returns the kernel launches of one encode."""
+    opts = q11_options()
+    n_frames = len(fmt.deserialize(ref)[2])
+    assert dt.compress(corpus16, opts) == ref, "warm quality-11 encode differs"
+    times = []
+    for run in range(3):
+        if run == 0:
+            cmd_pass.LAUNCHES = lit_pass.LAUNCHES = rans_encode.LAUNCHES = 0
+            encode.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = dt.compress(corpus16, opts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = {"cmd_pass": cmd_pass.LAUNCHES,
+                        "lit_pass": lit_pass.LAUNCHES,
+                        "encode_lanes": rans_encode.LAUNCHES}
+            stats = dict(encode.STATS)
+        assert blob == ref, "quality-11 device encode differs from " \
+            "native.compress"
+    assert all(launches.values()), f"an encode kernel never ran: {launches}"
+    assert stats == {"cmd_device": n_frames, "cmd_host": 0,
+                     "lit_device": n_frames, "lit_host": 0}, stats
+    mbps = len(corpus16) / min(times) / 1e6
+    print(f"[q11-main] quality-11 encode e2e {mbps:.2f} MB/s best of 3 after "
+          f"a warm one ({', '.join(f'{t:.3f}' for t in times)} s), output "
+          f"== native.compress | launches {launches} per encode, frames "
+          f"{stats} | {smi}")
+    _timed_encode(corpus16, ref, opts, "q11-main", smi)
+    return launches
+
+
+def phase_q11_roundtrip(blob: bytes, corpus16: bytes, smi: str) -> int:
+    """The quality-11 container decoded on the card; returns the kernel
+    launches of that decode."""
+    n_frames = len(fmt.deserialize(blob)[2])
+    lit_decode.LAUNCHES = 0
+    decode.STATS.update(device_frames=0, host_frames=0)
+    t0 = time.perf_counter()
+    raw = dt.decompress(blob)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert raw == corpus16, "quality-11 round trip differs"
+    assert decode.STATS == {"device_frames": n_frames, "host_frames": 0}, \
+        decode.STATS
+    launches = lit_decode.LAUNCHES
+    assert launches > 0, "the quality-11 decode never launched the kernel"
+    print(f"[q11-roundtrip] decompress on the card == the {len(raw)}-byte "
+          f"corpus, {len(raw) / wall / 1e6:.2f} MB/s (one run), frames "
+          f"{decode.STATS}, {launches} kernel launches | {smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -466,23 +660,44 @@ def main() -> int:
     blob = phase_reference(corpus)
     enc = phase_encode_compare(corpus, device, smi)
     enc_launches = phase_encode_main(corpus, blob, smi)
-    dec = phase_compare(blob, device)
+    dec = phase_compare(blob, device, "dec-compare")
     dec_launches = phase_main(blob, corpus, device, smi)
-    rows = [("lit_decode_chunk", lit_decode, dec, dec_launches,
-             "divans_tpu/codec/pallas_decode.py:182"),
-            ("lit_pass", lit_pass, enc["lit_pass"], enc_launches["lit_pass"],
-             "divans_tpu/codec/pallas_lit_pass.py:99"),
-            ("encode_lanes", rans_encode, enc["encode_lanes"],
-             enc_launches["encode_lanes"],
-             "divans_tpu/ans/pallas_kernels.py:57")]
+    corpus16 = corpus[:Q11_BYTES]
+    blob16 = phase_q11_reference(corpus16)
+    q11 = phase_q11_compare(corpus16, device, smi)
+    q11_launches = phase_q11_main(corpus16, blob16, smi)
+    dec16 = phase_compare(blob16, device, "q11-dec-compare")
+    dec16_launches = phase_q11_roundtrip(blob16, corpus16, smi)
+    # one entry a kernel and path: its launches counted on that path's
+    # run, its comparison made on that path's own inputs
+    decode_src = "divans_tpu/codec/pallas_decode.py:182"
+    lit_src = "divans_tpu/codec/pallas_lit_pass.py:99"
+    rans_src = "divans_tpu/ans/pallas_kernels.py:57"
+    rows = [("lit_decode_chunk", lit_decode, "quality-10 decode", dec,
+             dec_launches, decode_src),
+            ("lit_decode_chunk", lit_decode, "quality-11 decode", dec16,
+             dec16_launches, decode_src),
+            ("lit_pass", lit_pass, "quality-10 encode", enc["lit_pass"],
+             enc_launches["lit_pass"], lit_src),
+            ("lit_pass", lit_pass, "quality-11 encode", q11["lit_pass"],
+             q11_launches["lit_pass"], lit_src),
+            ("encode_lanes", rans_encode, "quality-10 encode",
+             enc["encode_lanes"], enc_launches["encode_lanes"], rans_src),
+            # a batch launches it twice (cmd lanes, lit lanes): its ms,
+            # plain_ms and bound_ms are the two launches' sum
+            ("encode_lanes", rans_encode, "quality-11 encode",
+             q11["encode_lanes"], q11_launches["encode_lanes"], rans_src),
+            ("cmd_pass", cmd_pass, "quality-11 encode", q11["cmd_pass"],
+             q11_launches["cmd_pass"],
+             "divans_tpu/codec/pallas_cmd_pass.py:144")]
     kernels = [{
-        "name": k_name, "route": "cuda",
+        "name": k_name, "path": path, "route": "cuda",
         "source": f"divans_tpu_torch/csrc/{mod.NAME}.cu",
         "replaces": replaces, "launches": launches,
         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": None}
-        for k_name, mod, e, launches, replaces in rows]
+        for k_name, mod, path, e, launches, replaces in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,10 +3,12 @@
 Both run the deferred profile (chunk_nibbles > 0) on a device: "cuda"
 unless the caller passes device="cpu", where every kernel runs its
 plain PyTorch version; with neither and no CUDA they raise.  compress
-is codec/encode.compress_frames (host C++ for the trace and the cmd
-stream, the card for the literals), byte-identical to
-divans_tpu.native.compress; native.compress is the host-only path.
-decompress is codec/decode.decompress_frames.
+is codec/encode.compress_frames, byte-identical to
+divans_tpu.native.compress: up to quality 10 the hybrid path (host C++
+for the trace and the cmd stream, the card for the literals), at
+quality 11 the uniform device lanes (the card codes both streams);
+native.compress is the host-only path.  decompress is
+codec/decode.decompress_frames.
 """
 from __future__ import annotations
 
@@ -34,11 +36,12 @@ def _device(device, entry: str) -> torch.device:
 def compress(data: bytes, options: DivansOptions | None = None,
              device=None) -> bytes:
     options = options or DivansOptions()
-    if not native.supports(options):
+    if not (native.supports(options) or native.supports_cmds(options)):
         raise NotImplementedError(
-            "port compress covers quality <= 10 with the mechanical trace "
-            "only; quality 11, detection, block split, context-map "
-            "clustering, streaming and the IR optimizer are not ported")
+            "port compress covers the mechanical trace (quality <= 10) and "
+            "quality 11 with the context map; detection, block split, "
+            "context-map clustering, streaming and the IR optimizer are "
+            "not ported")
     chunk = options.chunk_nibbles
     if not chunk:
         raise NotImplementedError(

@@ -16,6 +16,13 @@ ADJ_CLAMP = 1 << 21
 WEIGHT_MAX = (1 << 30) - 1
 SUB_LIT = 1 << 15   # literal bytes per lit sub-stream (deferred-v3)
 
+
+def cmd_chunk(chunk: int) -> int:
+    """Per-stream ticking: the cmd stream's chunk (in steps) for a
+    literal chunk of `chunk` nibbles."""
+    return max(16, chunk >> 2)
+
+
 # container flags byte: bits 0-1 profile, bits 2-4 chunk code
 _CHUNK_SHIFT = 2
 _CHUNK_BITS = 0b111

@@ -1,0 +1,48 @@
+"""The command IR: brotli-style commands, the interchange between the
+matcher (ir/matcher) and the trace FSM (native.build_trace_cmds).  A
+copy of the subset of divans_tpu/ir/commands.py that the port's encode
+emits: no block switches.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..constants import LITERAL_PREDICTION_MODE_UTF8
+from ..probability.speed import DEFAULT_LITERAL_SPEED, Speed
+
+NUM_MIXING_VALUES = 8192
+
+
+@dataclasses.dataclass
+class Literal:
+    data: bytes
+    high_entropy: bool = False
+
+
+@dataclasses.dataclass
+class Copy:
+    distance: int
+    num_bytes: int
+
+
+@dataclasses.dataclass
+class Dict:
+    word_size: int      # 4..24
+    word_id: int        # < 2^DICT_BITS[word_size]
+    transform: int      # < 121
+    final_size: int     # length after the transform
+
+
+@dataclasses.dataclass
+class PredictionMode:
+    """Model-configuration header command: everything the decoder needs,
+    so the decoder is configuration-free."""
+    literal_prediction_mode: int = LITERAL_PREDICTION_MODE_UTF8
+    context_mixing: int = 0          # 0..7 on the wire; &3 = mixer level
+    adv_context_map: int = 0
+    prior_depth: int = 0
+    # adaptation speeds: [stride-low, stride-high, cm-low, cm-high]
+    speeds: tuple[Speed, Speed, Speed, Speed] = (DEFAULT_LITERAL_SPEED,) * 4
+    literal_context_map: bytes = b""     # 64 entries per literal block type
+    distance_context_map: bytes = b""    # 4 entries per distance block type
+    mixing_values: bytes = b""           # NUM_MIXING_VALUES entries or empty

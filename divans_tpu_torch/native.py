@@ -9,8 +9,12 @@ library is absent).  The port binds it itself, with the calls it needs:
     (`decode_metablock`) for frames outside the device envelope;
   * encode: the matcher and trace FSM (`build_trace`), the stream coder
     (`encode_streams`), the literal packer of the device encode
-    (`pack_lit`) and the host-only `compress`, limited to what runs
-    wholly in C++ (quality <= 10, the mechanical trace);
+    (`pack_lit`) and the host-only `compress`; up to quality 10 the
+    trace is mechanical (matches straight into the FSM), at quality 11
+    the matcher's command list (ir/matcher: the greedy matcher
+    `find_matches`, the dictionary scan `dict_scan` and the optimal
+    parse `find_matches_optimal` with dictionary edges) goes through the
+    FSM (`build_trace_cmds`);
   * `crc32c` (SSE4.2).
 
 There is no pure-Python engine behind it: if the library cannot be built
@@ -19,6 +23,7 @@ or loaded, `load()` raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 import subprocess
@@ -64,6 +69,12 @@ _SIGNATURES = {
                                   _P, _P],
     "dtpu_execute_script": [_P, _I, _P, ctypes.c_int64, _P, _I, _P, _I],
     "dtpu_pack_lit": [_P, _I, _I, _P, _I, _P],
+    "dtpu_build_trace_cmds": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                              _I, _P, _P, _P, _I, _P, _I],
+}
+# entry points that return nothing
+_VOID_SIGNATURES = {
+    "dtpu_dict_scan": [_P, _I, _P, _I] + [_P] * 9,
 }
 
 _lib = None
@@ -85,6 +96,9 @@ def load():
         lib = ctypes.CDLL(_SO)
         for fn, args in _SIGNATURES.items():
             getattr(lib, fn).restype = ctypes.c_int32
+            getattr(lib, fn).argtypes = args
+        for fn, args in _VOID_SIGNATURES.items():
+            getattr(lib, fn).restype = None
             getattr(lib, fn).argtypes = args
         lib.dtpu_crc32c.restype = ctypes.c_uint32
         lib.dtpu_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64,
@@ -155,6 +169,9 @@ def _dict_args():
 
 # ------------------------------------------------------------------ encode
 
+Q10_DEPTH = 24   # chain depth of the quality-10 optimal parse
+Q10_KCAND = 2    # its candidate frontier width
+
 def supports(options: DivansOptions) -> bool:
     """Does the wholly-native encode (matcher + trace FSM + coder, no
     Python command lists) cover these options?"""
@@ -170,17 +187,70 @@ def supports(options: DivansOptions) -> bool:
             and not options.prior_bitmask_detection)
 
 
-def find_matches_optimal(data: bytes) -> np.ndarray:
-    """Cost-model optimal parse (native DP), int32[n,3] matches: the
-    native branch of divans_tpu/ir/matcher.find_matches_optimal at
-    quality 10 (chain depth 24, 2-entry candidate frontier, constant
-    literal cost, distance cost 40/16 + 7/16 * bitlen bits, no
-    dictionary edges)."""
+def supports_cmds(options: DivansOptions) -> bool:
+    """Does the command-list encode (ir/matcher.build_commands, then
+    `build_trace_cmds`) cover these options?  Quality 11 with the
+    context map, with otherwise the options `supports` takes: the IR
+    optimizer, block split, context-map clustering, masks and detection
+    stay refused (and the FSM refuses quality 11 without a context map,
+    as the reference's does)."""
+    return (options.quality == 11 and options.use_context_map
+            and supports(dataclasses.replace(options, quality=10)))
+
+
+def find_matches(raw: bytes, quality: int) -> np.ndarray:
+    """Greedy+lazy hash-chain matches (dtpu_match), int32[n,3] rows of
+    (position, distance, length)."""
+    n = len(raw)
+    matches = np.empty((max(1, n // 4 + 8), 3), np.int32)
+    nm = load().dtpu_match(raw or b"\0", n, quality,
+                           matches.ctypes.data_as(ctypes.c_void_p),
+                           matches.shape[0])
+    if nm < 0:
+        raise RuntimeError("match buffer overflow")
+    return matches[:nm]
+
+
+def dict_scan(data: bytes, index) -> tuple[np.ndarray, np.ndarray]:
+    """(out_len i32[n], ent_idx i32[n]): the longest dictionary-transform
+    output at every position (0 and -1 where none), over the flattened
+    index of ir/matcher._dict_flat_index."""
+    (grams, boff, blob, eo, el, _ew, _ei, _et, pref16, p8, m8) = index
+    n = len(data)
+    out_len = np.zeros(max(1, n), np.int32)
+    ent_idx = np.full(max(1, n), -1, np.int32)
+    if n < 4 or grams.shape[0] == 0:
+        return out_len[:n], ent_idx[:n]
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    load().dtpu_dict_scan(data, n, ptr(grams), grams.shape[0], ptr(pref16),
+                          ptr(boff), blob, ptr(eo), ptr(el), ptr(p8),
+                          ptr(m8), ptr(out_len), ptr(ent_idx))
+    return out_len, ent_idx
+
+
+def find_matches_optimal(data: bytes, depth: int, kcand: int,
+                         dict_len: np.ndarray | None = None,
+                         dict_cost: np.ndarray | None = None,
+                         lit_scale16: int = 0) -> np.ndarray:
+    """Cost-model optimal parse (dtpu_parse_optimal: literal costs, DP
+    and repeat-distance rewrite in one call), int32[n,3] rows of
+    (position, distance, length); distance 0 marks a dictionary edge.
+    ir/matcher gives each quality's chain depth and candidate frontier
+    width, and at quality 11 the per-position dictionary edges.  Distance
+    cost 40/16 + 7/16 * bitlen bits; lit_scale16 0 = one calibrated
+    literal cost."""
     lib = load()
     n = len(data)
     out = np.zeros((n // 2 + 8, 3), np.int32)
-    nm = lib.dtpu_parse_optimal(data, n, 24, 2, 0, 40, 7, None, None,
-                                out.ctypes.data_as(ctypes.c_void_p),
+    dl = None if dict_len is None else dict_len.ctypes.data_as(
+        ctypes.c_void_p)
+    dc = None if dict_cost is None else dict_cost.ctypes.data_as(
+        ctypes.c_void_p)
+    nm = lib.dtpu_parse_optimal(data, n, depth, kcand, lit_scale16, 40, 7,
+                                dl, dc, out.ctypes.data_as(ctypes.c_void_p),
                                 out.shape[0])
     if nm < 0:
         raise RuntimeError("optimal parse overflowed its match buffer")
@@ -194,41 +264,87 @@ def build_trace(raw: bytes, options: DivansOptions,
     lib = load()
     n = len(raw)
     if options.quality >= 10 and n >= 4:
-        matches = np.ascontiguousarray(find_matches_optimal(raw))
-        nm = matches.shape[0]
-        if nm == 0:
-            matches = np.zeros((1, 3), np.int32)
+        matches = find_matches_optimal(raw, Q10_DEPTH, Q10_KCAND)
     else:
-        matches = np.empty((max(1, n // 4 + 8), 3), np.int32)
-        nm = lib.dtpu_match(raw, n, options.quality,
-                            matches.ctypes.data_as(ctypes.c_void_p),
-                            matches.shape[0])
-        if nm < 0:
-            raise RuntimeError("match buffer overflow")
-    seg = _seg_array(layout)
+        matches = find_matches(raw, options.quality)
+    nm = matches.shape[0]
+    if nm == 0:
+        matches = np.zeros((1, 3), np.int32)
+    cap = 4 * n + 16384
+    out = np.empty((cap, 10), np.int32)
+    ns = lib.dtpu_build_trace(
+        raw, n, matches.ctypes.data_as(ctypes.c_void_p), nm,
+        *_fsm_args(options, layout), None,
+        out.ctypes.data_as(ctypes.c_void_p), cap)
+    if ns < 0:
+        raise NotImplementedError("the native trace builder abstained")
+    return out[:ns]
+
+
+def _fsm_args(options: DivansOptions, layout: ModelLayout) -> tuple:
+    """The trace FSM's arguments shared by dtpu_build_trace and
+    dtpu_build_trace_cmds, from use_cm to lut1 (each pointer keeps its
+    array alive)."""
     speeds = options.literal_adaptation or (MUD, MUD, Speed(8, 8192),
                                             Speed(8, 8192))
     adapt = np.array([[s.inc, s.lim] for s in speeds], np.int32)
     lut0, lut1 = _luts()
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    return (1 if options.use_context_map else 0,
+            min(options.dynamic_context_mixing, 7),
+            options.prior_depth,
+            max(1, options.force_stride_value),
+            ptr(adapt), ptr(_seg_array(layout)),
+            layout.segments["cm_second"][1][1], layout.lo_shift,
+            1 if layout.lo_bucketed else 0,
+            ptr(lut0), ptr(lut1))
+
+
+def _cmd_rows(commands, options: DivansOptions) -> np.ndarray | None:
+    """Command list -> int32[n,5] rows for dtpu_build_trace_cmds ((0,
+    len) Literal, (1, distance, len) Copy, (2, word_size, word_id,
+    transform, final_size) Dict), or None when the list is outside what
+    the port emits: a first command other than the options' default
+    PredictionMode, or a command of another kind."""
+    from .ir import commands as cmds
+    from .ir.matcher import default_prediction_mode
+
+    if not commands or commands[0] != default_prediction_mode(options):
+        return None
+    rows = np.zeros((len(commands) - 1, 5), np.int32)
+    for i, c in enumerate(commands[1:]):
+        if isinstance(c, cmds.Literal):
+            rows[i] = (0, len(c.data), 0, 0, 0)
+        elif isinstance(c, cmds.Copy):
+            rows[i] = (1, c.distance, c.num_bytes, 0, 0)
+        elif isinstance(c, cmds.Dict):
+            rows[i] = (2, c.word_size, c.word_id, c.transform, c.final_size)
+        else:
+            return None
+    return rows
+
+
+def build_trace_cmds(raw: bytes, commands, options: DivansOptions,
+                     layout: ModelLayout) -> np.ndarray | None:
+    """An explicit command list -> int32[n,10] trace through the C++ FSM
+    (Dict commands included: the quality-11 encode), or None when the
+    list or the FSM is outside the envelope."""
+    rows = _cmd_rows(commands, options)
+    if rows is None or layout.segments["cm_first"][1][0] < 64:
+        return None   # one block type needs 64 context rows
+    lib = load()
+    n = len(raw)
     cap = 4 * n + 16384
     out = np.empty((cap, 10), np.int32)
-    ns = lib.dtpu_build_trace(
-        raw, n,
-        matches.ctypes.data_as(ctypes.c_void_p), nm,
-        1 if options.use_context_map else 0,
-        min(options.dynamic_context_mixing, 7),
-        options.prior_depth,
-        max(1, options.force_stride_value),
-        adapt.ctypes.data_as(ctypes.c_void_p),
-        seg.ctypes.data_as(ctypes.c_void_p),
-        layout.segments["cm_second"][1][1], layout.lo_shift,
-        1 if layout.lo_bucketed else 0,
-        lut0.ctypes.data_as(ctypes.c_void_p),
-        lut1.ctypes.data_as(ctypes.c_void_p),
-        None,
+    ns = lib.dtpu_build_trace_cmds(
+        raw or b"\0", n, rows.ctypes.data_as(ctypes.c_void_p), rows.shape[0],
+        *_fsm_args(options, layout), None, 1,
         out.ctypes.data_as(ctypes.c_void_p), cap)
     if ns < 0:
-        raise NotImplementedError("the native trace builder abstained")
+        return None
     return out[:ns]
 
 
@@ -279,27 +395,30 @@ def pack_lit(trace: np.ndarray, lit_base: int):
 
 def compress(data: bytes, options: DivansOptions | None = None) -> bytes:
     """Host-native compress: byte-identical to divans_tpu.native.compress
-    on the options it covers.  The reference the device encode
-    (codec/encode.py) is held against.  Raises NotImplementedError on the rest
-    (quality 11, detection, block split, the IR optimizer)."""
+    on the options it covers (`supports`, and quality 11 through
+    `supports_cmds`).  The reference the device encode (codec/encode.py)
+    is held against.  Raises NotImplementedError on the rest (detection,
+    block split, context-map clustering, streaming, the IR optimizer)."""
     from concurrent.futures import ThreadPoolExecutor
     from .container import format as fmt
     from .codec.deferred import chunk_to_flags
+    from .codec.encode import frame_trace
     from .codec.layout import PROFILE_FLAGS, profile_for_options
 
     options = options or DivansOptions()
-    if not supports(options):
+    if not (supports(options) or supports_cmds(options)):
         raise NotImplementedError(
-            "port compress covers quality <= 10 with the mechanical trace "
-            "only; quality 11, detection, block split, context-map "
-            "clustering, streaming and the IR optimizer are not ported")
+            "port compress covers the mechanical trace (quality <= 10) and "
+            "quality 11 with the context map; detection, block split, "
+            "context-map clustering, streaming and the IR optimizer are "
+            "not ported")
     profile = profile_for_options(options)
     chunk = options.chunk_nibbles
     layout = ModelLayout(PROFILES[profile], lo_bucketed=chunk > 0)
     lit_base = layout.segments["lit_hi"][0]
 
     def one(raw):
-        trace = build_trace(raw, options, layout)
+        trace = frame_trace(raw, options, layout)
         cmd_b, lit_b = encode_streams(trace, layout.num_rows, chunk,
                                       lit_base=lit_base)
         return fmt.MetablockFrame(len(raw), cmd_b, lit_b)

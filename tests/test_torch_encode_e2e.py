@@ -1,8 +1,9 @@
 """The port's device encode end to end on the CPU:
-divans_tpu_torch.compress(device="cpu") runs the hybrid pipeline with
-each kernel's plain version and must give the container bytes of the
-JAX package's native.compress (and of its own hybrid device encode, run
-in Pallas interpret mode), byte for byte.  Inputs: the sorted
+divans_tpu_torch.compress(device="cpu") runs the hybrid pipeline (up to
+quality 10) or the uniform device lanes (quality 11) with each kernel's
+plain version and must give the container bytes of the JAX package's
+native.compress (and of its own device branches of jax_engine.compress,
+run in Pallas interpret mode), byte for byte.  Inputs: the sorted
 divans_tpu sources, a slice of the vendored dictionary and
 numpy-seeded bytes."""
 import glob
@@ -15,10 +16,13 @@ import torch
 from divans_tpu import native as jnative
 from divans_tpu.codec import jax_engine
 from divans_tpu.container import format as jfmt
+from divans_tpu.ir import matcher as jmatcher
 from divans_tpu.options import DivansOptions as JOptions
 
 import divans_tpu_torch as port
+from divans_tpu_torch import native
 from divans_tpu_torch.codec import decode, encode
+from divans_tpu_torch.ir import matcher
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +45,7 @@ def _corpus(n: int, seed: int, binary: float = 0.2) -> bytes:
 def _compress(data: bytes, **kw):
     """(port bytes on the CPU, reference bytes, STATS of the port run)."""
     kw = dict(dict(chunk_nibbles=256), **kw)
-    encode.STATS.update(device_frames=0, host_frames=0)
+    encode.reset_stats()
     got = port.compress(data, port.DivansOptions(**kw), device="cpu")
     return got, jnative.compress(data, JOptions(**kw)), dict(encode.STATS)
 
@@ -50,13 +54,19 @@ def _n_frames(blob: bytes) -> int:
     return len(jfmt.deserialize(blob)[2])
 
 
+def _stats(cmd_device=0, cmd_host=0, lit_device=0, lit_host=0):
+    return dict(cmd_device=cmd_device, cmd_host=cmd_host,
+                lit_device=lit_device, lit_host=lit_host)
+
+
 @pytest.mark.parametrize("quality", [9, 10])
 @pytest.mark.parametrize("mb", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
 def test_compress_matches_native(mb, quality):
     data = _corpus(70000, seed=mb.bit_length() + quality)
     got, ref, stats = _compress(data, metablock_size=mb, quality=quality)
     assert got == ref
-    assert stats == {"device_frames": _n_frames(ref), "host_frames": 0}
+    n = _n_frames(ref)
+    assert stats == _stats(cmd_host=n, lit_device=n)
 
 
 def test_frame_with_several_sub_streams():
@@ -64,7 +74,7 @@ def test_frame_with_several_sub_streams():
     (32 KiB) literals: its lit field has several sub-stream lanes."""
     data = _corpus(60000, seed=11, binary=0.9)
     got, ref, stats = _compress(data, metablock_size=1 << 16)
-    assert got == ref and stats["device_frames"] == 1
+    assert got == ref and stats["lit_device"] == 1
     lit = jfmt.deserialize(ref)[2][0].lit
     assert lit[0] >= 2, "expected a lit field with several sub-streams"
 
@@ -85,7 +95,7 @@ def test_other_profiles_code_literals_on_the_host(kw):
     data = _corpus(40000, seed=13)
     got, ref, stats = _compress(data, metablock_size=1 << 14, **kw)
     assert got == ref
-    assert stats == {"device_frames": 0, "host_frames": _n_frames(ref)}
+    assert stats == _stats(cmd_host=_n_frames(ref), lit_host=_n_frames(ref))
 
 
 def test_roundtrip_through_port_decode():
@@ -126,3 +136,98 @@ def test_adaptive_profile_is_not_ported():
     with pytest.raises(NotImplementedError, match="adaptive profile"):
         port.compress(b"abc" * 100, port.DivansOptions(chunk_nibbles=0),
                       device="cpu")
+
+
+# ------------------------------------------------------------ quality 11
+
+@pytest.fixture(scope="module")
+def dictionary_indexes():
+    """Both packages' dictionary indexes, built once and single-threaded
+    (the reference's build is not guarded by a lock, and its encode
+    pool would build it once a thread)."""
+    jmatcher._dict_flat_index()
+    matcher._dict_flat_index()
+
+
+@pytest.mark.parametrize("mb", [1 << 13, 1 << 15])
+def test_q11_compress_matches_native(mb, dictionary_indexes):
+    """Quality 11 takes the uniform device lanes: every frame's cmd
+    stream and literals on the card's kernels (their plain versions
+    here), the container of the reference's native.compress."""
+    data = _corpus(70000, seed=mb.bit_length() + 11)
+    got, ref, stats = _compress(data, metablock_size=mb, quality=11)
+    assert got == ref
+    n = _n_frames(ref)
+    assert stats == _stats(cmd_device=n, lit_device=n)
+    assert native.compress(data, port.DivansOptions(
+        metablock_size=mb, quality=11, chunk_nibbles=256)) == ref
+
+
+def test_q11_matches_reference_uniform_device_encode(monkeypatch,
+                                                     dictionary_indexes):
+    """The JAX package's own uniform branch (jax_engine.compress made to
+    believe it runs on a TPU: the cmd pass then runs kernel 4 in
+    interpret mode) gives the same bytes."""
+    monkeypatch.setattr(jax_engine, "_on_tpu", lambda: True)
+    data = _corpus(24000, seed=16)
+    kw = dict(metablock_size=8192, chunk_nibbles=256, quality=11)
+    ref = jax_engine.compress(data, JOptions(**kw))
+    assert port.compress(data, port.DivansOptions(**kw), device="cpu") == ref
+
+
+@pytest.mark.parametrize("kw", [dict(chunk_nibbles=0),
+                                dict(force_stride_value=4),
+                                dict(dynamic_context_mixing=0)],
+                         ids=["adaptive", "stride4", "no_mixing"])
+def test_q11_native_compress_matches_reference(kw, dictionary_indexes):
+    data = _corpus(30000, seed=17)
+    kw = dict(dict(metablock_size=1 << 14, chunk_nibbles=256, quality=11),
+              **kw)
+    assert native.compress(data, port.DivansOptions(**kw)) == \
+        jnative.compress(data, JOptions(**kw))
+
+
+def test_q11_mix_profile_codes_literals_on_the_host(dictionary_indexes):
+    """A forced stride (the mix profile) keeps the cmd streams on the
+    card and codes the literals on the host: the same bytes."""
+    data = _corpus(30000, seed=18)
+    got, ref, stats = _compress(data, metablock_size=1 << 14, quality=11,
+                                force_stride_value=4)
+    assert got == ref
+    n = _n_frames(ref)
+    assert stats == _stats(cmd_device=n, lit_host=n)
+
+
+def test_q11_roundtrip_through_port_decode(dictionary_indexes):
+    data = _corpus(40000, seed=19)
+    blob = port.compress(data, port.DivansOptions(
+        metablock_size=1 << 14, chunk_nibbles=256, quality=11),
+        device="cpu")
+    decode.STATS.update(device_frames=0, host_frames=0)
+    assert port.decompress(blob, device="cpu") == data
+    assert decode.STATS == {"device_frames": _n_frames(blob),
+                            "host_frames": 0}
+
+
+def test_q11_cmd_speeds_outside_the_contract_raise(monkeypatch,
+                                                   dictionary_indexes):
+    """A quality-11 frame whose cmd rows are not each at one speed is
+    outside the cmd pass's contract: the encode raises rather than code
+    the stream somewhere else."""
+    monkeypatch.setattr(encode.cmd_pass, "cmd_speeds_from_rows",
+                        lambda ts, r: None)
+    with pytest.raises(ValueError, match="contract"):
+        port.compress(_corpus(9000, seed=20), port.DivansOptions(
+            metablock_size=8192, chunk_nibbles=256, quality=11),
+            device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(divans_ir_optimizer=1),
+                                dict(use_context_map=False)],
+                         ids=["ir_optimizer", "no_context_map"])
+def test_q11_outside_the_port_raises(kw):
+    opts = port.DivansOptions(quality=11, chunk_nibbles=256, **kw)
+    with pytest.raises(NotImplementedError):
+        port.compress(b"hello world" * 100, opts, device="cpu")
+    with pytest.raises(NotImplementedError):
+        native.compress(b"hello world" * 100, opts)

@@ -275,7 +275,8 @@ def test_compress_profiles_match_reference(kw):
         jnative.compress(data, JOptions(**kw))
 
 
-@pytest.mark.parametrize("kw", [dict(quality=11), dict(block_split=True),
+@pytest.mark.parametrize("kw", [dict(quality=11, use_context_map=False),
+                                dict(block_split=True),
                                 dict(stride_detection_quality=1),
                                 dict(divans_ir_optimizer=1)])
 def test_compress_raises_outside_native(kw):
