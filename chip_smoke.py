@@ -5,9 +5,9 @@
 
 Phases, each printing its line; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi) and CUDA;
-  2. build: the four kernels (csrc/lit_decode.cu, lit_pass.cu,
-     rans_encode.cu, cmd_pass.cu), one nvcc each, all started together,
-     and the host C++ library;
+  2. build: the five kernels (csrc/lit_decode.cu, lit_pass.cu,
+     rans_encode.cu, cmd_pass.cu, deferred_pass.cu), one nvcc each, all
+     started together, and the host C++ library;
   3. a 48 MiB corpus, and its host-only container (native.compress,
      metablock 2^18, chunk_nibbles 256): the reference bytes;
   4. encode kernels against their plain versions: the main path's first
@@ -45,7 +45,23 @@ Phases, each printing its line; any failure raises and exits non-zero:
      container's first lane group, as in phase 6 (every lane that has a
      job live);
  12. quality-11 round trip: divans_tpu_torch.decompress of that
-     container on the card equals the 16 MiB, no frame on the host.
+     container on the card equals the 16 MiB, no frame on the host;
+ 13. the mix profile (force_stride_value=4, quality 10) on the whole
+     corpus, whose literals the generic deferred pass codes: the
+     host-only reference; on the first batch's generic literal lanes
+     (built by encode.batch_jobs) that pass, kernel against plain, then
+     the rANS encode on its output; one warm and three timed encodes
+     (each equal to the reference, launching the generic pass, no
+     frame's literals elsewhere); one event-timed encode; one round
+     trip (the decode of this profile runs on the host);
+ 14. the stride profile (the CLI's -nocm: no context map, no mixing) on
+     the first 16 MiB: the reference, the generic pass against its
+     plain version on the first batch, one warm and one timed encode;
+ 15. the mix profile at quality 11 on the first 4 MiB (the uniform
+     path: the cmd pass on the cmd lanes, the generic pass on the
+     literals, the rANS encode on both): the reference, the generic
+     pass against its plain version on the first batch, one warm and
+     one timed encode.
 Each path's launches are counted with the counts set to 0 just before
 its run.  Then one JSON line with the kernels' numbers, one entry for
 each kernel and path (the kernel's launches on that path, its
@@ -64,19 +80,23 @@ import sysconfig
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 import divans_tpu_torch as dt
 from divans_tpu_torch import cuda_build, native
 from divans_tpu_torch.ans import rans_encode
-from divans_tpu_torch.codec import (cmd_pass, decode, encode, lit_decode,
-                                    lit_pass)
+from divans_tpu_torch.codec import (cmd_pass, decode, deferred_pass, encode,
+                                    lit_decode, lit_pass)
 from divans_tpu_torch.codec.deferred import SUB_LIT, cmd_chunk, flags_to_chunk
-from divans_tpu_torch.codec.layout import ModelLayout, PROFILES
+from divans_tpu_torch.codec.layout import (ModelLayout, PROFILES,
+                                           profile_for_options)
 from divans_tpu_torch.container import format as fmt
 
 CORPUS_BYTES = 48 << 20
 Q11_BYTES = 16 << 20     # the quality-11 corpus: the first 16 MiB
+STRIDE_BYTES = 16 << 20  # the stride-profile corpus: the first 16 MiB
+Q11_MIX_BYTES = 4 << 20  # the quality-11 mix-profile corpus: the first 4 MiB
 MB_SIZE = 1 << 18
 CHUNK = 256
 # peaks of one H100 SXM at 700 W (NVIDIA's data sheet and Hopper
@@ -94,13 +114,22 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # one floor division, the update, the loads and stores); the cmd model
 # pass ~90 a step (three row-entry loads, two exact floor divisions, the
 # histogram atomic, the stores) and ~6 a model entry in each chunk's
-# commit (R rows x 16 entries; renorm passes not counted)
+# commit (R rows x 16 entries; renorm passes not counted); the generic
+# deferred pass ~100 a step (three row-entry loads, two exact floor
+# divisions, up to three atomics and the stores), ~150 more a mixing step
+# (three more loads, three averages at one entry, three more divisions,
+# the adjustments, three more atomics), and ~100 a touched row in each
+# commit (the pend's 16 entries summed and cleared, a division, one
+# renorm pass)
 LIT_PASS_OPS_PER_NIBBLE = 250
 LIT_PASS_OPS_PER_ENTRY = 4
 RANS_OPS_PER_SYMBOL = 40
 CMD_PASS_OPS_PER_STEP = 90
 CMD_PASS_OPS_PER_ENTRY = 6
-KERNEL_MODULES = (lit_decode, lit_pass, rans_encode, cmd_pass)
+GENERIC_OPS_PER_STEP = 100
+GENERIC_OPS_PER_MIX_STEP = 150
+GENERIC_OPS_PER_COMMIT = 100
+KERNEL_MODULES = (lit_decode, lit_pass, rans_encode, cmd_pass, deferred_pass)
 
 
 def build_corpus(target: int) -> bytes:
@@ -206,18 +235,19 @@ def _entry(ms, plain_ms, n_bytes, n_ops, max_err) -> dict:
             "n_bytes": n_bytes, "n_ops": n_ops}
 
 
+def _layout(opts) -> ModelLayout:
+    return ModelLayout(PROFILES[profile_for_options(opts)], lo_bucketed=True)
+
+
 def _first_batch(corpus: bytes, opts):
     """The host side of the main path's first batch (the corpus's first
     HYBRID_BATCH frames, host_frame on 8 threads)."""
-    layout = ModelLayout(PROFILES["cm"], lo_bucketed=True)
+    layout = _layout(opts)
     blocks = [corpus[o:o + MB_SIZE]
               for o in range(0, encode.HYBRID_BATCH * MB_SIZE, MB_SIZE)]
     with ThreadPoolExecutor(8) as ex:
-        got = list(ex.map(lambda b: encode.host_frame(b, opts, layout, CHUNK),
-                          blocks))
-    assert all(g.lit_row is not None for g in got), \
-        "a frame's literals left the card"
-    return got
+        return list(ex.map(
+            lambda b: encode.host_frame(b, opts, layout, CHUNK), blocks))
 
 
 def _lit_pass_compare(got, device, tag: str, smi: str):
@@ -282,6 +312,11 @@ def _rans_compare(st, fr, counts, tag: str, lanes: str, smi: str) -> dict:
     return e
 
 
+def _stats(**counts) -> dict:
+    """encode.STATS with these counts, every other one 0."""
+    return dict(dict.fromkeys(encode.STATS, 0), **counts)
+
+
 def _sum_entries(parts: list[dict]) -> dict:
     """One batch's launches of a kernel as one entry: the times, bytes
     and operations summed, the worst error."""
@@ -298,6 +333,8 @@ def phase_encode_compare(corpus: bytes, device, smi: str) -> dict:
     plain_ms, bound)."""
     opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK)
     got = _first_batch(corpus, opts)
+    assert all(g.lit_row is not None for g in got), \
+        "a frame's literals left the lit pass"
     tag = "enc-compare"
     print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B, chunk "
           f"{CHUNK}")
@@ -306,36 +343,49 @@ def phase_encode_compare(corpus: bytes, device, smi: str) -> dict:
     return {"lit_pass": lp, "encode_lanes": re_}
 
 
+def _encode_runs(data: bytes, ref: bytes, opts, kernels: dict, expect: dict,
+                 tag: str, smi: str, runs: int = 3):
+    """One warm encode, then `runs` timed ones through
+    divans_tpu_torch.compress, each equal to `ref`.  The launches of
+    `kernels` ({entry name: kernel module}) and encode.STATS are counted
+    over the first timed run (the counts set to 0 just before it): every
+    kernel must have launched and the frame counts must be `expect` (the
+    others 0).  Returns (launches, best MB/s)."""
+    assert dt.compress(data, opts) == ref, f"[{tag}] warm encode differs"
+    times = []
+    for run in range(runs):
+        if run == 0:
+            for m in kernels.values():
+                m.LAUNCHES = 0
+            encode.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = dt.compress(data, opts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = {k: m.LAUNCHES for k, m in kernels.items()}
+            stats = dict(encode.STATS)
+        assert blob == ref, f"[{tag}] device encode differs from " \
+            "native.compress"
+    assert all(launches.values()), f"[{tag}] a kernel never ran: {launches}"
+    assert stats == _stats(**expect), stats
+    mbps = len(data) / min(times) / 1e6
+    print(f"[{tag}] encode e2e {mbps:.2f} MB/s best of {runs} after a warm "
+          f"one ({', '.join(f'{t:.3f}' for t in times)} s), output == "
+          f"native.compress | launches {launches} per encode, frames "
+          f"{stats} | {smi}")
+    return launches, mbps
+
+
 def phase_encode_main(corpus: bytes, ref: bytes, smi: str) -> dict:
     """The port's encode at full size on the card; returns the kernel
     launches of one encode."""
     opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK)
-    n_frames = len(fmt.deserialize(ref)[2])
-    assert dt.compress(corpus, opts) == ref, "warm encode differs"
-    times = []
-    for run in range(3):
-        if run == 0:
-            lit_pass.LAUNCHES = rans_encode.LAUNCHES = 0
-            encode.reset_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        blob = dt.compress(corpus, opts)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if run == 0:
-            launches = {"lit_pass": lit_pass.LAUNCHES,
-                        "encode_lanes": rans_encode.LAUNCHES}
-            stats = dict(encode.STATS)
-        assert blob == ref, "device encode differs from native.compress"
-    assert all(launches.values()), f"an encode kernel never ran: {launches}"
-    assert stats == {"cmd_device": 0, "cmd_host": n_frames,
-                     "lit_device": n_frames, "lit_host": 0}, stats
-    mbps = len(corpus) / min(times) / 1e6
-    print(f"[enc-main] encode e2e {mbps:.2f} MB/s best of 3 after a warm one "
-          f"({', '.join(f'{t:.3f}' for t in times)} s), output == "
-          f"native.compress | launches {launches} per encode, frames "
-          f"{stats} | {smi}")
-
+    n = len(fmt.deserialize(ref)[2])
+    launches, _mbps = _encode_runs(
+        corpus, ref, opts, {"lit_pass": lit_pass, "encode_lanes": rans_encode},
+        dict(cmd_host=n, lit_device=n), "enc-main", smi)
     _timed_encode(corpus, ref, opts, "enc-main", smi)
     return launches
 
@@ -346,9 +396,8 @@ def _timed_encode(corpus: bytes, ref: bytes, opts, tag: str, smi: str):
     blocks = [corpus[o:o + MB_SIZE] for o in range(0, len(corpus), MB_SIZE)]
     timing: list = []
     t0 = time.perf_counter()
-    frames = encode.compress_frames(
-        blocks, opts, ModelLayout(PROFILES["cm"], lo_bucketed=True), CHUNK,
-        torch.device("cuda"), timing=timing)
+    frames = encode.compress_frames(blocks, opts, _layout(opts), CHUNK,
+                                    torch.device("cuda"), timing=timing)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     assert [(f.cmd, f.lit) for f in frames] == \
@@ -554,7 +603,9 @@ def phase_q11_compare(corpus16: bytes, device, smi: str) -> dict:
     rANS encode's two launches summed."""
     got = _first_batch(corpus16, q11_options())
     assert all(g.cmd_row is not None for g in got), \
-        "a frame's cmd stream left the card"
+        "a frame's cmd stream left the cmd pass"
+    assert all(g.lit_row is not None for g in got), \
+        "a frame's literals left the lit pass"
     tag = "q11-compare"
     s = cmd_chunk(CHUNK)
     packed, inc, lim, n_steps = (
@@ -597,33 +648,11 @@ def phase_q11_main(corpus16: bytes, ref: bytes, smi: str) -> dict:
     """The quality-11 encode (uniform device lanes) at full size on the
     card; returns the kernel launches of one encode."""
     opts = q11_options()
-    n_frames = len(fmt.deserialize(ref)[2])
-    assert dt.compress(corpus16, opts) == ref, "warm quality-11 encode differs"
-    times = []
-    for run in range(3):
-        if run == 0:
-            cmd_pass.LAUNCHES = lit_pass.LAUNCHES = rans_encode.LAUNCHES = 0
-            encode.reset_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        blob = dt.compress(corpus16, opts)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if run == 0:
-            launches = {"cmd_pass": cmd_pass.LAUNCHES,
-                        "lit_pass": lit_pass.LAUNCHES,
-                        "encode_lanes": rans_encode.LAUNCHES}
-            stats = dict(encode.STATS)
-        assert blob == ref, "quality-11 device encode differs from " \
-            "native.compress"
-    assert all(launches.values()), f"an encode kernel never ran: {launches}"
-    assert stats == {"cmd_device": n_frames, "cmd_host": 0,
-                     "lit_device": n_frames, "lit_host": 0}, stats
-    mbps = len(corpus16) / min(times) / 1e6
-    print(f"[q11-main] quality-11 encode e2e {mbps:.2f} MB/s best of 3 after "
-          f"a warm one ({', '.join(f'{t:.3f}' for t in times)} s), output "
-          f"== native.compress | launches {launches} per encode, frames "
-          f"{stats} | {smi}")
+    n = len(fmt.deserialize(ref)[2])
+    launches, _mbps = _encode_runs(
+        corpus16, ref, opts, {"cmd_pass": cmd_pass, "lit_pass": lit_pass,
+                              "encode_lanes": rans_encode},
+        dict(cmd_device=n, lit_device=n), "q11-main", smi)
     _timed_encode(corpus16, ref, opts, "q11-main", smi)
     return launches
 
@@ -649,6 +678,176 @@ def phase_q11_roundtrip(blob: bytes, corpus16: bytes, smi: str) -> int:
     return launches
 
 
+# ------------------------------------------- the generic deferred pass
+
+def mix_options(**kw):
+    """The mix profile: a forced stride of 4 with the context map."""
+    return dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK,
+                            force_stride_value=4, **kw)
+
+
+def stride_options():
+    """The stride profile, the CLI's -nocm: no context map, no mixing."""
+    return dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK,
+                            use_context_map=False, dynamic_context_mixing=0)
+
+
+def phase_profile_reference(data: bytes, opts, tag: str):
+    """The container of `data` from the host-only path (native.compress)
+    on these options: the bytes the device encode must equal.  Returns
+    (blob, seconds)."""
+    t0 = time.perf_counter()
+    blob = native.compress(data, opts)
+    t_enc = time.perf_counter() - t0
+    print(f"[{tag}] native.compress (host C++ only), profile "
+          f"{profile_for_options(opts)}, quality {opts.quality}: {len(data)} "
+          f"bytes -> {len(blob)} ({len(blob) / len(data):.4f}), "
+          f"{len(fmt.deserialize(blob)[2])} frames, {t_enc:.2f} s "
+          f"({len(data) / t_enc / 1e6:.2f} MB/s)")
+    return blob, t_enc
+
+
+def _generic_work(trace, counts, s: int):
+    """(bytes, operations) the generic pass needs on these lanes: each
+    live step's 40 B of trace read once, the counts, starts and freqs
+    written once over [B, N]; GENERIC_OPS_PER_STEP a live step, the mix
+    steps' extra, and GENERIC_OPS_PER_COMMIT for each row a chunk touched
+    that a later chunk of its lane commits."""
+    b, n = trace.shape[:2]
+    n_sym = n_mix = commits = 0
+    for i, k in enumerate(counts.tolist()):
+        if k == 0:
+            continue
+        t = trace[i, :k]
+        chunk_of = np.arange(k) // s
+        later = chunk_of < chunk_of[-1]   # the lane's last chunk never commits
+        mix = t[:, 5] != 0
+        hit = (t[:, 3] != 0) & later
+        cm_hit = mix & (t[:, 8] != 0) & later
+        keys = np.concatenate([chunk_of[hit] * (1 << 20) + t[hit, 0],
+                               chunk_of[cm_hit] * (1 << 20) + t[cm_hit, 7]])
+        n_sym += k
+        n_mix += int(mix.sum())
+        commits += len(np.unique(keys))
+    return (40 * n_sym + 4 * b + 8 * b * n,
+            GENERIC_OPS_PER_STEP * n_sym + GENERIC_OPS_PER_MIX_STEP * n_mix
+            + GENERIC_OPS_PER_COMMIT * commits)
+
+
+def _generic_compare(got, opts, device, tag: str, smi: str):
+    """The generic deferred pass, kernel against plain, on the batch's
+    lanes for it (its "lit_generic" job, built by batch_jobs as the main
+    path builds it); returns (entry, the kernel's starts, freqs, the
+    lanes' counts).  The kernel's time is its wrapper's, the range check
+    of the trace included."""
+    jobs, _places = encode.batch_jobs(got, range(len(got)), _layout(opts),
+                                      CHUNK)
+    (arrays, (r, s)), = [(a, p) for name, a, p in jobs
+                         if name == "lit_generic"]
+    trace, counts = (torch.from_numpy(a).to(device) for a in arrays)
+    b, n = trace.shape[:2]
+    (st_p, fr_p), plain_ms = _cuda_ms_once(
+        lambda: deferred_pass.deferred_pass_plain(trace, counts, r, s))
+    st_k, fr_k = deferred_pass.deferred_pass(trace, counts, r, s)
+    torch.cuda.synchronize()
+    err = _max_err([(st_k, st_p), (fr_k, fr_p)])
+    assert err == 0, f"deferred_pass kernel differs from its plain version " \
+        f"by {err}"
+    ms = _cuda_ms(lambda: deferred_pass.deferred_pass(trace, counts, r, s), 10)
+    n_bytes, n_ops = _generic_work(*arrays, s)
+    e = _entry(ms, plain_ms, n_bytes, n_ops, err)
+    live = int((counts > 0).sum())
+    print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B | generic "
+          f"lit lanes: {b} lanes, {live} live, {int(counts.sum())} steps, N "
+          f"{n}, {r} rows, chunk {s} | deferred_pass kernel == plain on "
+          f"starts, freqs (max_abs_err {err}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {e['bound_ms']:.6f} ms by "
+          f"{e['bound_by']} ({e['n_bytes']} B, {e['n_ops']} ops) | {smi}")
+    return e, st_k, fr_k, counts
+
+
+def phase_mix(corpus: bytes, device, smi: str) -> dict:
+    """The mix profile at full width (force_stride_value=4, quality 10,
+    the whole corpus): the host-only reference, kernel 5 and then the
+    rANS encode against their plain versions on the first batch's
+    literal lanes, one warm and three timed encodes, one event-timed
+    encode, and a round trip (decoded on the host, as in the reference).
+    Returns the entries and launches of kernel 5 and the rANS encode."""
+    opts = mix_options()
+    ref, t_ref = phase_profile_reference(corpus, opts, "mix-reference")
+    got = _first_batch(corpus, opts)
+    assert all(g.lit_trace is not None for g in got), \
+        "a mix-profile frame's literals left the generic pass"
+    e5, st, fr, counts = _generic_compare(got, opts, device, "mix-compare",
+                                          smi)
+    re_ = _rans_compare(st, fr, counts, "mix-compare", "generic lit lanes",
+                        smi)
+    n = len(fmt.deserialize(ref)[2])
+    launches, mbps = _encode_runs(
+        corpus, ref, opts, {"deferred_pass": deferred_pass,
+                            "encode_lanes": rans_encode},
+        dict(cmd_host=n, lit_generic=n), "mix-main", smi)
+    print(f"[mix-main] device encode {mbps:.2f} MB/s against native.compress "
+          f"{len(corpus) / t_ref / 1e6:.2f} MB/s in this run | {smi}")
+    _timed_encode(corpus, ref, opts, "mix-main", smi)
+    decode.STATS.update(device_frames=0, host_frames=0)
+    t0 = time.perf_counter()
+    assert dt.decompress(ref) == corpus, "mix-profile round trip differs"
+    wall = time.perf_counter() - t0
+    assert decode.STATS == {"device_frames": 0, "host_frames": n}, \
+        decode.STATS
+    print(f"[mix-roundtrip] decompress == the {len(corpus)}-byte corpus, "
+          f"{len(corpus) / wall / 1e6:.2f} MB/s (one run, every frame on "
+          f"the host: no device decode of this profile) | {smi}")
+    return {"deferred_pass": (e5, launches["deferred_pass"]),
+            "encode_lanes": (re_, launches["encode_lanes"])}
+
+
+def phase_stride(data: bytes, device, smi: str):
+    """The stride profile (the CLI's -nocm) on the corpus's first
+    STRIDE_BYTES: the host-only reference, kernel 5 against its plain
+    version on the first batch, one warm and one timed encode.  Returns
+    kernel 5's entry and launches."""
+    opts = stride_options()
+    ref, t_ref = phase_profile_reference(data, opts, "stride-reference")
+    e5, _st, _fr, _c = _generic_compare(_first_batch(data, opts), opts,
+                                        device, "stride-compare", smi)
+    n = len(fmt.deserialize(ref)[2])
+    launches, mbps = _encode_runs(
+        data, ref, opts, {"deferred_pass": deferred_pass,
+                          "encode_lanes": rans_encode},
+        dict(cmd_host=n, lit_generic=n), "stride-main", smi, runs=1)
+    print(f"[stride-main] device encode {mbps:.2f} MB/s against "
+          f"native.compress {len(data) / t_ref / 1e6:.2f} MB/s in this run "
+          f"| {smi}")
+    return e5, launches["deferred_pass"]
+
+
+def phase_q11_mix(data: bytes, device, smi: str):
+    """The mix profile at quality 11 on the corpus's first Q11_MIX_BYTES:
+    the uniform path, the cmd pass on the cmd lanes, kernel 5 on the
+    literals, the rANS encode on both.  The host-only reference, kernel
+    5 against its plain version on the first batch, one warm and one
+    timed encode.  Returns kernel 5's entry and launches."""
+    opts = mix_options(quality=11)
+    ref, t_ref = phase_profile_reference(data, opts, "q11-mix-reference")
+    got = _first_batch(data, opts)
+    assert all(g.cmd_row is not None for g in got), \
+        "a frame's cmd stream left the cmd pass"
+    e5, _st, _fr, _c = _generic_compare(got, opts, device, "q11-mix-compare",
+                                        smi)
+    n = len(fmt.deserialize(ref)[2])
+    launches, mbps = _encode_runs(
+        data, ref, opts, {"cmd_pass": cmd_pass,
+                          "deferred_pass": deferred_pass,
+                          "encode_lanes": rans_encode},
+        dict(cmd_device=n, lit_generic=n), "q11-mix-main", smi, runs=1)
+    print(f"[q11-mix-main] device encode {mbps:.2f} MB/s against "
+          f"native.compress {len(data) / t_ref / 1e6:.2f} MB/s in this run "
+          f"| {smi}")
+    return e5, launches["deferred_pass"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -668,11 +867,15 @@ def main() -> int:
     q11_launches = phase_q11_main(corpus16, blob16, smi)
     dec16 = phase_compare(blob16, device, "q11-dec-compare")
     dec16_launches = phase_q11_roundtrip(blob16, corpus16, smi)
+    mix = phase_mix(corpus, device, smi)
+    stride = phase_stride(corpus[:STRIDE_BYTES], device, smi)
+    q11_mix = phase_q11_mix(corpus[:Q11_MIX_BYTES], device, smi)
     # one entry a kernel and path: its launches counted on that path's
     # run, its comparison made on that path's own inputs
     decode_src = "divans_tpu/codec/pallas_decode.py:182"
     lit_src = "divans_tpu/codec/pallas_lit_pass.py:99"
     rans_src = "divans_tpu/ans/pallas_kernels.py:57"
+    generic_src = "divans_tpu/codec/pallas_model.py:100"
     rows = [("lit_decode_chunk", lit_decode, "quality-10 decode", dec,
              dec_launches, decode_src),
             ("lit_decode_chunk", lit_decode, "quality-11 decode", dec16,
@@ -687,9 +890,18 @@ def main() -> int:
             # plain_ms and bound_ms are the two launches' sum
             ("encode_lanes", rans_encode, "quality-11 encode",
              q11["encode_lanes"], q11_launches["encode_lanes"], rans_src),
+            # compared on the mix first batch's generic lit lanes
+            ("encode_lanes", rans_encode, "mix-profile encode",
+             *mix["encode_lanes"], rans_src),
             ("cmd_pass", cmd_pass, "quality-11 encode", q11["cmd_pass"],
              q11_launches["cmd_pass"],
-             "divans_tpu/codec/pallas_cmd_pass.py:144")]
+             "divans_tpu/codec/pallas_cmd_pass.py:144"),
+            ("deferred_pass", deferred_pass, "mix-profile encode",
+             *mix["deferred_pass"], generic_src),
+            ("deferred_pass", deferred_pass, "stride-profile encode",
+             *stride, generic_src),
+            ("deferred_pass", deferred_pass, "quality-11 mix-profile encode",
+             *q11_mix, generic_src)]
     kernels = [{
         "name": k_name, "path": path, "route": "cuda",
         "source": f"divans_tpu_torch/csrc/{mod.NAME}.cu",

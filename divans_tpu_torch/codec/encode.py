@@ -6,33 +6,35 @@ divans_tpu/codec/jax_engine.compress.
     codes each frame's cmd stream, the card its literals.
   * Uniform device lanes (jax_engine.py:984-1063 with
     `deferred_model_pass`, :610), for quality 11 (native.supports_cmds):
-    the card codes both streams, the cmd stream with the cmd model pass
-    (codec/cmd_pass, kernel csrc/cmd_pass.cu), one lane per frame.
+    the card codes both streams, one cmd lane per frame.
 
 Per metablock (frame), on a pool of up to 8 host threads: the trace
 (frame_trace: the mechanical FSM, or at quality 11 the matcher's
-command list through the FSM), the stream split, the cmd steps packed
-for the card (uniform) or the cmd stream coded (hybrid), the literal
-bytes packed (native.pack_lit).  Then HYBRID_BATCH frames at a time the
-card runs, from one issuing thread on one stream: the cmd model pass on
-the batch's cmd lanes; the literal model pass (codec/lit_pass, kernel
-csrc/lit_pass.cu) on its lit lanes, one per SUB_LIT-byte sub-stream; for
-each stream the wide rANS encode (ans/rans_encode, kernel
-csrc/rans_encode.cu) and compact_global, then the copy back.  A puller
-thread waits on each batch's CUDA event, turns each stream's flat words
-into per-lane bytes (assemble_global) and joins each frame's literal
-sub-streams into its lit field (lit_subs_join).  The streams use
+command list through the FSM), the stream split, the cmd stream coded
+(hybrid) or prepared for the card (uniform), the literals prepared for
+the card.  Then HYBRID_BATCH frames at a time the card runs, from one
+issuing thread on one stream, up to four jobs (batch_jobs), each a
+model pass, the wide rANS encode (ans/rans_encode, kernel
+csrc/rans_encode.cu) and compact_global, then the copy back:
+  * "cmd": the cmd model pass (codec/cmd_pass, kernel csrc/cmd_pass.cu)
+    on the cmd streams whose speeds are constant per row (its contract,
+    checked frame by frame), packed one uint16 a step;
+  * "cmd_generic": the generic deferred pass (codec/deferred_pass,
+    kernel csrc/deferred_pass.cu) on the other cmd streams, as traces;
+  * "lit": the literal model pass (codec/lit_pass, kernel
+    csrc/lit_pass.cu) on the literals native.pack_lit packs (the
+    bucketed cm profile), one lane per SUB_LIT-byte sub-stream;
+  * "lit_generic": the generic deferred pass on every other frame's
+    literals (the stride and mix profiles, a dead first literal step):
+    the rebased lit trace cut into sub-stream lanes.
+A puller thread waits on each batch's CUDA event, turns each job's flat
+words into per-lane bytes (assemble_global) and joins each frame's
+literal sub-streams into its lit field (lit_subs_join).  The streams use
 disjoint model rows and lanes are independent, so the bytes equal
-native.compress's whatever the batching (the reference runs its uniform
-branch over the whole file at once).
-
-What the card does not take is coded on the host (native.encode_streams)
-and counted in STATS: a frame's literals outside the packed envelope
-(pack_lit returns None: the stride and mix profiles, a dead first
-literal step), whose port is the generic deferred pass (ROADMAP.md).  On
-the uniform path every cmd stream goes to the card: the FSM codes each
-cmd row at one speed, and a frame whose cmd speeds are not constant
-breaks that contract and raises.
+native.compress's whatever the batching and whichever pass takes a lane
+(the reference runs its uniform branch over the whole file at once, and
+sends a whole hybrid batch to its XLA pass when one frame leaves the
+packed envelope).  No frame's literals are coded on the host.
 """
 from __future__ import annotations
 
@@ -48,13 +50,21 @@ from .. import native
 from ..ans import rans_encode
 from ..container import format as fmt
 from ..ir.matcher import build_commands
-from . import cmd_pass, lit_model, lit_pass
+from . import cmd_pass, deferred_pass, lit_model, lit_pass
 from .deferred import SUB_LIT, cmd_chunk, lit_subs_join
 
 HYBRID_BATCH = 16   # frames per device batch, as in the reference
 
-# frames whose cmd / lit stream each path coded since the last reset
-STATS = {"cmd_device": 0, "cmd_host": 0, "lit_device": 0, "lit_host": 0}
+# frames whose cmd / lit stream each path coded since the last reset:
+# "device" the specialised kernel (cmd pass, lit pass), "generic" the
+# generic deferred pass, "host" the host coder
+STATS = {"cmd_device": 0, "cmd_generic": 0, "cmd_host": 0,
+         "lit_device": 0, "lit_generic": 0, "lit_host": 0}
+
+# the model pass of each job (batch_jobs), called with its arrays on the
+# device and then its scalar arguments
+PASSES = {"cmd": cmd_pass.cmd_pass, "cmd_generic": deferred_pass.deferred_pass,
+          "lit": lit_pass.lit_pass, "lit_generic": deferred_pass.deferred_pass}
 
 
 def reset_stats() -> None:
@@ -62,15 +72,16 @@ def reset_stats() -> None:
 
 
 class HostFrame(NamedTuple):
-    """The host side of one frame.  A stream the card codes has its
-    packed input set and its bytes None; a stream the host coded has its
-    bytes set."""
+    """The host side of one frame: per stream, exactly one of the host's
+    bytes (the hybrid path's cmd stream), the specialised kernel's
+    packed input, or the generic pass's trace."""
     cmd: bytes | None
-    lit: bytes | None
     cmd_row: np.ndarray | None     # uint16 cmd steps (pack_cmd_rows)
     cmd_spd: tuple | None          # (inc, lim) int32[lit_base]
+    cmd_trace: np.ndarray | None   # int32 [n, 10] cmd trace
     lit_row: np.ndarray | None     # uint16 literal bytes (pack_lit)
     lit_spd: np.ndarray | None     # int32[6]
+    lit_trace: np.ndarray | None   # int32 [n, 10] rebased lit trace
 
 
 def _rebase_lit(t: np.ndarray, lit_base: int) -> np.ndarray:
@@ -95,11 +106,24 @@ def split_stream_traces(traces: list[np.ndarray], layout):
     return cmd_ts, lit_ts, masks, lit_base, layout.num_rows - lit_base + 1
 
 
-def split_subs(row: np.ndarray) -> list[np.ndarray]:
+def split_subs(row: np.ndarray, size: int = SUB_LIT) -> list[np.ndarray]:
     """A frame's packed row as its SUB_LIT-byte sub-stream lanes (one
-    packed element is one literal byte); an empty row is one empty lane."""
-    k = max(1, -(-len(row) // SUB_LIT))
-    return [row[j * SUB_LIT:(j + 1) * SUB_LIT] for j in range(k)]
+    packed element is one literal byte; a lit trace passes size
+    2*SUB_LIT, a row pair per byte); an empty row is one empty lane."""
+    k = max(1, -(-len(row) // size))
+    return [row[j * size:(j + 1) * size] for j in range(k)]
+
+
+def split_lit_sub_traces(lit_ts: list[np.ndarray]):
+    """Frames' rebased lit traces as sub-stream lanes (deferred-v3), each
+    a lane with a fresh model.  Returns (sub-traces, spans), spans[i] =
+    (first sub-trace, count) of frame i."""
+    subs, spans = [], []
+    for t in lit_ts:
+        pieces = split_subs(t, 2 * SUB_LIT)
+        spans.append((len(subs), len(pieces)))
+        subs += pieces
+    return subs, spans
 
 
 def in_envelope(layout) -> bool:
@@ -126,33 +150,35 @@ def frame_trace(raw: bytes, options, layout) -> np.ndarray:
 
 
 def host_frame(raw: bytes, options, layout, chunk: int) -> HostFrame:
-    """Trace one frame, pack what the card codes and code the rest.  The
-    cmd stream goes to the card on the uniform path (options beyond the
-    mechanical trace, as in the reference), the literals wherever
-    pack_lit takes them."""
+    """Trace one frame and prepare each stream for the pass that takes
+    it.  The cmd stream is coded here on the hybrid path and goes to the
+    card on the uniform path (options beyond the mechanical trace, as in
+    the reference): to the cmd pass when its speeds are constant per
+    row, else to the generic pass.  The literals go to the lit pass when
+    pack_lit takes them, else to the generic pass."""
     lit_base = layout.segments["lit_hi"][0]
     trace = frame_trace(raw, options, layout)
-    sel = 3                       # bit 0: host codes cmd, bit 1: lit
-    cmd_row = cmd_spd = None
-    if not native.supports(options):
-        cmd_t = split_stream_traces([trace], layout)[0][0]
-        cmd_spd = cmd_pass.cmd_speeds_from_rows([cmd_t], lit_base)
-        if cmd_spd is None:
-            raise ValueError("a cmd row coded at two speeds, or a mixing "
-                             "cmd step: outside the cmd pass's contract")
-        cmd_row = cmd_pass.pack_cmd_rows(cmd_t)
-        sel &= ~1
+    hybrid = native.supports(options)
     packed = native.pack_lit(trace, lit_base) if in_envelope(layout) \
         else None
+    cmd_t = lit_t = None
+    if not hybrid or packed is None:
+        (cmd_t,), (lit_t,), *_ = split_stream_traces([trace], layout)
+    cmd_b = cmd_row = cmd_spd = None
+    if hybrid:
+        cmd_b = native.encode_streams(trace, layout.num_rows, chunk, sel=1,
+                                      lit_base=lit_base)[0]
+        cmd_t = None
+    else:
+        cmd_spd = cmd_pass.cmd_speeds_from_rows([cmd_t], lit_base)
+        if cmd_spd is not None:
+            cmd_row = cmd_pass.pack_cmd_rows(cmd_t)
+            cmd_t = None
+    lit_row = lit_spd = None
     if packed is not None:
-        sel &= ~2
-    cmd_b = lit_b = None
-    if sel:
-        cmd_b, lit_b = native.encode_streams(trace, layout.num_rows, chunk,
-                                             sel=sel, lit_base=lit_base)
-    return HostFrame(cmd_b if sel & 1 else None, lit_b if sel & 2 else None,
-                     cmd_row, cmd_spd,
-                     *(packed[:2] if packed is not None else (None, None)))
+        lit_row, lit_spd = packed[:2]
+        lit_t = None
+    return HostFrame(cmd_b, cmd_row, cmd_spd, cmd_t, lit_row, lit_spd, lit_t)
 
 
 def batch_lanes(host_results):
@@ -195,6 +221,50 @@ def cmd_batch_inputs(host_results, s: int):
     return packed, inc, lim, n_steps
 
 
+def generic_inputs(traces: list[np.ndarray], s: int):
+    """The generic pass's host inputs for a batch of lane traces:
+    (trace int32 [B, N, 10], counts int32 [B]), N the longest lane
+    rounded up to a whole chunk of s steps."""
+    return (deferred_pass.pad_traces(traces, s),
+            np.array([t.shape[0] for t in traces], np.int32))
+
+
+def batch_jobs(got, idxs, layout, chunk: int):
+    """The device jobs of one batch from its frames' host_frame results
+    (got, frame indices idxs): ([(name, host arrays, scalar arguments of
+    its pass)], places), places[j] = (stream, [(frame index, first lane,
+    lane count)]) for job j."""
+    lit_base = layout.segments["lit_hi"][0]
+    r_lit = layout.num_rows - lit_base + 1
+    s_cmd = cmd_chunk(chunk)
+    jobs, places = [], []
+    k4 = [(i, g) for i, g in zip(idxs, got) if g.cmd_row is not None]
+    if k4:
+        jobs.append(("cmd", cmd_batch_inputs([g for _i, g in k4], s_cmd),
+                     (s_cmd,)))
+        places.append(("cmd", [(i, j, 1) for j, (i, _g) in enumerate(k4)]))
+    gen = [(i, g.cmd_trace) for i, g in zip(idxs, got)
+           if g.cmd_trace is not None]
+    if gen:
+        jobs.append(("cmd_generic",
+                     generic_inputs([t for _i, t in gen], s_cmd),
+                     (lit_base, s_cmd)))
+        places.append(("cmd", [(i, j, 1) for j, (i, _t) in enumerate(gen)]))
+    k3 = [i for i, g in zip(idxs, got) if g.lit_row is not None]
+    if k3:
+        rows, spds, spans = batch_lanes(got)
+        jobs.append(("lit", batch_inputs(rows, spds, chunk), (chunk,)))
+        places.append(("lit", [(i, *sp) for i, sp in zip(k3, spans)]))
+    gen = [(i, g.lit_trace) for i, g in zip(idxs, got)
+           if g.lit_trace is not None]
+    if gen:
+        subs, spans = split_lit_sub_traces([t for _i, t in gen])
+        jobs.append(("lit_generic", generic_inputs(subs, chunk),
+                     (r_lit, chunk)))
+        places.append(("lit", [(i, *sp) for (i, _t), sp in zip(gen, spans)]))
+    return jobs, places
+
+
 def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A host array on `dev`: on the card through pinned memory, without
     blocking the issuing thread."""
@@ -205,15 +275,15 @@ def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def issue_batch(cmd_inputs, lit_inputs, chunk: int, device, marks=None):
-    """The device side of one batch: for each stream given (the cmd
-    kernels' inputs and the lit kernels', or None), upload, model pass,
+def issue_batch(jobs, device, marks=None):
+    """The device side of one batch: for each job (name, host arrays,
+    scalar arguments; batch_jobs), upload, model pass (PASSES[name]),
     rANS encode and compaction; then the start of the copy back.
-    Returns ([(flat, header)] per stream given, event): host tensors and,
-    on the card, the CUDA event that marks the end of their copy (None on
-    the CPU).  `marks` (on the card): a list that gets (stage, CUDA
-    event) recorded at the start of each stage ("cmd_pass", "cmd_rans",
-    "cmd_compact", the same for "lit", "copy"), then ("end", event)."""
+    Returns ([(flat, header)] per job, event): host tensors and, on the
+    card, the CUDA event that marks the end of their copy (None on the
+    CPU).  `marks` (on the card): a list that gets (stage, CUDA event)
+    recorded at the start of each stage (f"{name}_pass", f"{name}_rans",
+    f"{name}_compact" per job, "copy"), then ("end", event)."""
     dev = torch.device(device)
 
     def mark(stage):
@@ -223,19 +293,14 @@ def issue_batch(cmd_inputs, lit_inputs, chunk: int, device, marks=None):
             marks.append((stage, ev))
 
     outs = []
-    for inputs, stream in ((cmd_inputs, "cmd"), (lit_inputs, "lit")):
-        if inputs is None:
-            continue
-        t = [upload(a, dev) for a in inputs]
-        mark(f"{stream}_pass")
-        if stream == "cmd":
-            starts, freqs = cmd_pass.cmd_pass(*t, cmd_chunk(chunk))
-        else:
-            starts, freqs = lit_pass.lit_pass(*t, chunk)
+    for name, arrays, params in jobs:
+        t = [upload(a, dev) for a in arrays]
+        mark(f"{name}_pass")
+        starts, freqs = PASSES[name](*t, *params)
         counts = t[-1]
-        mark(f"{stream}_rans")
+        mark(f"{name}_rans")
         words, flags, states = rans_encode.encode_lanes(starts, freqs, counts)
-        mark(f"{stream}_compact")
+        mark(f"{name}_compact")
         outs.append(rans_encode.compact_global(words, flags, counts, states))
     if dev.type != "cuda":
         return outs, None
@@ -289,34 +354,31 @@ def compress_frames(blocks, options, layout, chunk: int, device,
             got = [futs[i].result() for i in idxs]
             t_wait = time.perf_counter() - t_wait
             for i, g in zip(idxs, got):
-                cmd[i], lit[i] = g.cmd, g.lit
-            cmd_idxs = [i for i, g in zip(idxs, got) if g.cmd_row is not None]
-            lit_idxs = [i for i, g in zip(idxs, got) if g.lit_row is not None]
-            STATS["cmd_device"] += len(cmd_idxs)
-            STATS["cmd_host"] += len(got) - len(cmd_idxs)
-            STATS["lit_device"] += len(lit_idxs)
-            STATS["lit_host"] += len(got) - len(lit_idxs)
-            rows, spds, spans = batch_lanes(got)
-            cmd_in = cmd_batch_inputs(got, cmd_chunk(chunk)) if cmd_idxs \
-                else None
-            lit_in = batch_inputs(rows, spds, chunk) if rows else None
-            if cmd_in is None and lit_in is None:
+                cmd[i] = g.cmd
+            jobs, places = batch_jobs(got, idxs, layout, chunk)
+            done = {"cmd": 0, "lit": 0}
+            for (name, _a, _p), (stream, frames) in zip(jobs, places):
+                key = "device" if name == stream else "generic"
+                STATS[f"{stream}_{key}"] += len(frames)
+                done[stream] += len(frames)
+            STATS["cmd_host"] += len(got) - done["cmd"]
+            STATS["lit_host"] += len(got) - done["lit"]
+            if not jobs:
                 continue
             marks = None
             if timing is not None:
                 marks = []
                 timing.append((marks, t_wait))
-            outs, event = issue_batch(cmd_in, lit_in, chunk, device, marks)
-            counts = [inputs[-1].tolist() for inputs in (cmd_in, lit_in)
-                      if inputs is not None]
-            pulls.append((cmd_idxs, lit_idxs, spans,
-                          puller.submit(pull_batch, outs, event, counts)))
-        for cmd_idxs, lit_idxs, spans, fut in pulls:
-            streams = fut.result()
-            if cmd_idxs:
-                for i, b in zip(cmd_idxs, streams.pop(0)):
-                    cmd[i] = b
-            for i, (off, k) in zip(lit_idxs, spans):
-                lit[i] = lit_subs_join(streams[0][off:off + k])
+            outs, event = issue_batch(jobs, device, marks)
+            counts = [arrays[-1].tolist() for _n, arrays, _p in jobs]
+            pulls.append((places, puller.submit(pull_batch, outs, event,
+                                                counts)))
+        for places, fut in pulls:
+            for (stream, frames), lanes in zip(places, fut.result()):
+                for i, off, k in frames:
+                    if stream == "cmd":
+                        cmd[i] = lanes[off]
+                    else:
+                        lit[i] = lit_subs_join(lanes[off:off + k])
     return [fmt.MetablockFrame(len(blocks[i]), cmd[i], lit[i])
             for i in range(n)]

@@ -108,10 +108,10 @@ def lit_pass(rows, spd, n_nib, chunk: int):
     return starts, freqs
 
 
-def _adjust(freq, p_cm, p_nib, mix):
-    """Per-lane sums of the mixer adjustments over the chunk's mixing
-    bytes (the reference's deferred.weight_adjustments): int32 [B, 2] =
-    (cm, nib)."""
+def mixer_adjustments(freq, p_cm, p_nib, mix):
+    """Per-lane sums of the mixer adjustments over a chunk's steps where
+    `mix` is set (the reference's deferred.weight_adjustments), with
+    int32 wraparound: int32 [B, 2] = (cm, nib)."""
     error = (1 << 15) - freq
     shift = torch.clamp(bit_length_pos(freq * error) - 15, min=0)
     return torch.stack(
@@ -171,7 +171,7 @@ def lit_pass_plain(rows, spd, n_nib, chunk: int):
             p_cm = cdf16.sym_to_start_freq(cm, sym)[1]
             p_nib = cdf16.sym_to_start_freq(nib, sym)[1]
             out.append((start, freq))
-            adj.append(_adjust(freq, p_cm, p_nib, mix))
+            adj.append(mixer_adjustments(freq, p_cm, p_nib, mix))
         wadj = torch.stack([adj[1], adj[0]], dim=1)       # [B, which, 2]
 
         # ---- outputs, hi and lo nibbles interleaved

@@ -54,9 +54,9 @@ def _n_frames(blob: bytes) -> int:
     return len(jfmt.deserialize(blob)[2])
 
 
-def _stats(cmd_device=0, cmd_host=0, lit_device=0, lit_host=0):
-    return dict(cmd_device=cmd_device, cmd_host=cmd_host,
-                lit_device=lit_device, lit_host=lit_host)
+def _stats(**counts):
+    """encode.STATS with these counts, every other one 0."""
+    return dict(dict.fromkeys(encode.STATS, 0), **counts)
 
 
 @pytest.mark.parametrize("quality", [9, 10])
@@ -91,11 +91,13 @@ def test_no_mixing_matches_native():
                          ids=["stride_profile", "stride4"])
 def test_other_profiles_code_literals_on_the_host(kw):
     """Frames outside the packed envelope (the stride and mix profiles)
-    have their literals coded on the host: the same bytes."""
+    have their literals coded by the generic deferred pass, none on the
+    host: the same bytes."""
     data = _corpus(40000, seed=13)
     got, ref, stats = _compress(data, metablock_size=1 << 14, **kw)
     assert got == ref
-    assert stats == _stats(cmd_host=_n_frames(ref), lit_host=_n_frames(ref))
+    n = _n_frames(ref)
+    assert stats == _stats(cmd_host=n, lit_generic=n)
 
 
 def test_roundtrip_through_port_decode():
@@ -118,6 +120,23 @@ def test_matches_reference_hybrid_device_encode(monkeypatch):
     kw = dict(metablock_size=8192, chunk_nibbles=256)
     ref = jax_engine.compress(data, JOptions(**kw))
     assert port.compress(data, port.DivansOptions(**kw), device="cpu") == ref
+
+
+@pytest.mark.parametrize("kw", [dict(use_context_map=False),
+                                dict(force_stride_value=4)],
+                         ids=["stride_profile", "stride4"])
+def test_other_profiles_match_reference_hybrid_encode(monkeypatch, kw):
+    """The reference's hybrid pipeline sends these profiles' literals to
+    its XLA generic pass (jax_engine.py:890-904): the port's generic pass
+    gives its bytes, and those of native.compress."""
+    monkeypatch.setattr(jax_engine, "_on_tpu", lambda: True)
+    data = _corpus(32000, seed=21)
+    kw = dict(metablock_size=8192, chunk_nibbles=256, **kw)
+    ref = jax_engine.compress(data, JOptions(**kw))
+    assert ref == jnative.compress(data, JOptions(**kw))
+    encode.reset_stats()
+    assert port.compress(data, port.DivansOptions(**kw), device="cpu") == ref
+    assert encode.STATS["lit_generic"] == _n_frames(ref)
 
 
 def test_empty_input():
@@ -189,13 +208,14 @@ def test_q11_native_compress_matches_reference(kw, dictionary_indexes):
 
 def test_q11_mix_profile_codes_literals_on_the_host(dictionary_indexes):
     """A forced stride (the mix profile) keeps the cmd streams on the
-    card and codes the literals on the host: the same bytes."""
+    cmd pass and codes the literals with the generic deferred pass, none
+    on the host: the same bytes."""
     data = _corpus(30000, seed=18)
     got, ref, stats = _compress(data, metablock_size=1 << 14, quality=11,
                                 force_stride_value=4)
     assert got == ref
     n = _n_frames(ref)
-    assert stats == _stats(cmd_device=n, lit_host=n)
+    assert stats == _stats(cmd_device=n, lit_generic=n)
 
 
 def test_q11_roundtrip_through_port_decode(dictionary_indexes):
@@ -212,14 +232,15 @@ def test_q11_roundtrip_through_port_decode(dictionary_indexes):
 def test_q11_cmd_speeds_outside_the_contract_raise(monkeypatch,
                                                    dictionary_indexes):
     """A quality-11 frame whose cmd rows are not each at one speed is
-    outside the cmd pass's contract: the encode raises rather than code
-    the stream somewhere else."""
+    outside the cmd pass's contract: its cmd stream takes the generic
+    deferred pass (jax_engine.py:670-675), the reference's bytes."""
     monkeypatch.setattr(encode.cmd_pass, "cmd_speeds_from_rows",
                         lambda ts, r: None)
-    with pytest.raises(ValueError, match="contract"):
-        port.compress(_corpus(9000, seed=20), port.DivansOptions(
-            metablock_size=8192, chunk_nibbles=256, quality=11),
-            device="cpu")
+    data = _corpus(20000, seed=20)
+    got, ref, stats = _compress(data, metablock_size=8192, quality=11)
+    assert got == ref
+    n = _n_frames(ref)
+    assert stats == _stats(cmd_generic=n, lit_device=n)
 
 
 @pytest.mark.parametrize("kw", [dict(divans_ir_optimizer=1),

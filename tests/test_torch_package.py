@@ -13,7 +13,7 @@ import torch
 
 import divans_tpu_torch
 from divans_tpu_torch.ans import rans_encode
-from divans_tpu_torch.codec import cmd_pass, lit_decode, lit_pass
+from divans_tpu_torch.codec import cmd_pass, deferred_pass, lit_decode, lit_pass
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(glob.glob(os.path.join(REPO, "divans_tpu_torch", "**",
@@ -77,7 +77,9 @@ def _meta(shape, dtype):
     lambda: cmd_pass.cmd_pass(_meta((1, 64), torch.uint16),
                               *[_meta((1, 203), torch.int32)] * 2,
                               _meta((1,), torch.int32), 64),
-], ids=["lit_decode", "lit_pass", "rans_encode", "cmd_pass"])
+    lambda: deferred_pass.deferred_pass(_meta((1, 256, 10), torch.int32),
+                                        _meta((1,), torch.int32), 385, 256),
+], ids=["lit_decode", "lit_pass", "rans_encode", "cmd_pass", "deferred_pass"])
 def test_kernel_wrapper_rejects_other_devices(call):
     """Each wrapper takes the plain version only for CPU tensors; any
     other device is the kernel's or an error, never a silent fallback."""
