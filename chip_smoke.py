@@ -55,13 +55,15 @@ Phases, each printing its line; any failure raises and exits non-zero:
      frame's literals elsewhere); one event-timed encode; one round
      trip (the decode of this profile runs on the host);
  14. the stride profile (the CLI's -nocm: no context map, no mixing) on
-     the first 16 MiB: the reference, the generic pass against its
-     plain version on the first batch, one warm and one timed encode;
+     the first 16 MiB: the reference; on the first batch the generic
+     pass against its plain version, then the rANS encode on its
+     output; one warm and one timed encode;
  15. the mix profile at quality 11 on the first 4 MiB (the uniform
      path: the cmd pass on the cmd lanes, the generic pass on the
-     literals, the rANS encode on both): the reference, the generic
-     pass against its plain version on the first batch, one warm and
-     one timed encode.
+     literals, the rANS encode on both): the reference; on the first
+     batch the cmd pass and the rANS encode on the cmd lanes, the
+     generic pass and the rANS encode on the literal lanes, each
+     against its plain version; one warm and one timed encode.
 Each path's launches are counted with the counts set to 0 just before
 its run.  Then one JSON line with the kernels' numbers, one entry for
 each kernel and path (the kernel's launches on that path, its
@@ -602,11 +604,25 @@ def phase_q11_compare(corpus16: bytes, device, smi: str) -> dict:
     and the rANS encode on the lit lanes.  Returns their entries, the
     rANS encode's two launches summed."""
     got = _first_batch(corpus16, q11_options())
-    assert all(g.cmd_row is not None for g in got), \
-        "a frame's cmd stream left the cmd pass"
     assert all(g.lit_row is not None for g in got), \
         "a frame's literals left the lit pass"
     tag = "q11-compare"
+    print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B")
+    cmd, st_k, fr_k, n_steps = _cmd_pass_compare(got, device, tag, smi)
+    re_cmd = _rans_compare(st_k, fr_k, n_steps, tag, "cmd lanes", smi)
+    lp, st, fr, n_nib = _lit_pass_compare(got, device, tag, smi)
+    re_lit = _rans_compare(st, fr, n_nib, tag, "lit lanes", smi)
+    return {"cmd_pass": cmd, "lit_pass": lp,
+            "encode_lanes": _sum_entries([re_cmd, re_lit])}
+
+
+def _cmd_pass_compare(got, device, tag: str, smi: str):
+    """The cmd model pass, kernel against plain, on the batch's cmd
+    lanes, packed the main path's way (every frame's cmd stream on the
+    cmd pass); returns (entry, the kernel's starts, freqs, the lanes'
+    counts)."""
+    assert all(g.cmd_row is not None for g in got), \
+        "a frame's cmd stream left the cmd pass"
     s = cmd_chunk(CHUNK)
     packed, inc, lim, n_steps = (
         torch.from_numpy(a).to(device)
@@ -630,18 +646,13 @@ def phase_q11_compare(corpus16: bytes, device, smi: str) -> dict:
     cmd = _entry(ms, plain_ms, 2 * n_sym + 8 * b * r + 4 * b + 8 * b * n,
                  CMD_PASS_OPS_PER_STEP * n_sym
                  + CMD_PASS_OPS_PER_ENTRY * r * 16 * lane_chunks, err)
-    print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B | cmd "
-          f"lanes: {b} lanes, {live} live, {n_sym} cmd steps, N {n}, {r} "
-          f"rows, chunk {s} steps | cmd_pass kernel == plain on starts, "
-          f"freqs (max_abs_err {err}): kernel {ms:.4f} ms, plain "
+    print(f"[{tag}] cmd lanes: {b} lanes, {live} live, {n_sym} cmd steps, "
+          f"N {n}, {r} rows, chunk {s} steps | cmd_pass kernel == plain on "
+          f"starts, freqs (max_abs_err {err}): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.2f} ms, bound {cmd['bound_ms']:.6f} ms by "
           f"{cmd['bound_by']} ({cmd['n_bytes']} B, {cmd['n_ops']} ops) | "
           f"{smi}")
-    re_cmd = _rans_compare(st_k, fr_k, n_steps, tag, "cmd lanes", smi)
-    lp, st, fr, n_nib = _lit_pass_compare(got, device, tag, smi)
-    re_lit = _rans_compare(st, fr, n_nib, tag, "lit lanes", smi)
-    return {"cmd_pass": cmd, "lit_pass": lp,
-            "encode_lanes": _sum_entries([re_cmd, re_lit])}
+    return cmd, st_k, fr_k, n_steps
 
 
 def phase_q11_main(corpus16: bytes, ref: bytes, smi: str) -> dict:
@@ -738,8 +749,8 @@ def _generic_compare(got, opts, device, tag: str, smi: str):
     """The generic deferred pass, kernel against plain, on the batch's
     lanes for it (its "lit_generic" job, built by batch_jobs as the main
     path builds it); returns (entry, the kernel's starts, freqs, the
-    lanes' counts).  The kernel's time is its wrapper's, the range check
-    of the trace included."""
+    lanes' counts).  The kernel is launched as the main path launches
+    it: host_frame range-checked the lanes, so no check on the card."""
     jobs, _places = encode.batch_jobs(got, range(len(got)), _layout(opts),
                                       CHUNK)
     (arrays, (r, s)), = [(a, p) for name, a, p in jobs
@@ -748,12 +759,14 @@ def _generic_compare(got, opts, device, tag: str, smi: str):
     b, n = trace.shape[:2]
     (st_p, fr_p), plain_ms = _cuda_ms_once(
         lambda: deferred_pass.deferred_pass_plain(trace, counts, r, s))
-    st_k, fr_k = deferred_pass.deferred_pass(trace, counts, r, s)
+    st_k, fr_k = deferred_pass.deferred_pass(trace, counts, r, s,
+                                             checked=True)
     torch.cuda.synchronize()
     err = _max_err([(st_k, st_p), (fr_k, fr_p)])
     assert err == 0, f"deferred_pass kernel differs from its plain version " \
         f"by {err}"
-    ms = _cuda_ms(lambda: deferred_pass.deferred_pass(trace, counts, r, s), 10)
+    ms = _cuda_ms(lambda: deferred_pass.deferred_pass(trace, counts, r, s,
+                                                      checked=True), 10)
     n_bytes, n_ops = _generic_work(*arrays, s)
     e = _entry(ms, plain_ms, n_bytes, n_ops, err)
     live = int((counts > 0).sum())
@@ -805,13 +818,16 @@ def phase_mix(corpus: bytes, device, smi: str) -> dict:
 
 def phase_stride(data: bytes, device, smi: str):
     """The stride profile (the CLI's -nocm) on the corpus's first
-    STRIDE_BYTES: the host-only reference, kernel 5 against its plain
-    version on the first batch, one warm and one timed encode.  Returns
-    kernel 5's entry and launches."""
+    STRIDE_BYTES: the host-only reference, kernel 5 and then the rANS
+    encode against their plain versions on the first batch's literal
+    lanes, one warm and one timed encode.  Returns the entries and
+    launches of kernel 5 and the rANS encode."""
     opts = stride_options()
     ref, t_ref = phase_profile_reference(data, opts, "stride-reference")
-    e5, _st, _fr, _c = _generic_compare(_first_batch(data, opts), opts,
-                                        device, "stride-compare", smi)
+    e5, st, fr, counts = _generic_compare(_first_batch(data, opts), opts,
+                                          device, "stride-compare", smi)
+    re_ = _rans_compare(st, fr, counts, "stride-compare",
+                        "generic lit lanes", smi)
     n = len(fmt.deserialize(ref)[2])
     launches, mbps = _encode_runs(
         data, ref, opts, {"deferred_pass": deferred_pass,
@@ -820,22 +836,27 @@ def phase_stride(data: bytes, device, smi: str):
     print(f"[stride-main] device encode {mbps:.2f} MB/s against "
           f"native.compress {len(data) / t_ref / 1e6:.2f} MB/s in this run "
           f"| {smi}")
-    return e5, launches["deferred_pass"]
+    return {"deferred_pass": (e5, launches["deferred_pass"]),
+            "encode_lanes": (re_, launches["encode_lanes"])}
 
 
 def phase_q11_mix(data: bytes, device, smi: str):
     """The mix profile at quality 11 on the corpus's first Q11_MIX_BYTES:
     the uniform path, the cmd pass on the cmd lanes, kernel 5 on the
-    literals, the rANS encode on both.  The host-only reference, kernel
-    5 against its plain version on the first batch, one warm and one
-    timed encode.  Returns kernel 5's entry and launches."""
+    literals, the rANS encode on both.  The host-only reference; on the
+    first batch the cmd pass and the rANS encode on the cmd lanes, kernel
+    5 and the rANS encode on the literal lanes, each against its plain
+    version; one warm and one timed encode.  Returns the entries and
+    launches of the three kernels, the rANS encode's two launches a
+    batch summed."""
     opts = mix_options(quality=11)
     ref, t_ref = phase_profile_reference(data, opts, "q11-mix-reference")
     got = _first_batch(data, opts)
-    assert all(g.cmd_row is not None for g in got), \
-        "a frame's cmd stream left the cmd pass"
-    e5, _st, _fr, _c = _generic_compare(got, opts, device, "q11-mix-compare",
-                                        smi)
+    tag = "q11-mix-compare"
+    cmd, st, fr, n_steps = _cmd_pass_compare(got, device, tag, smi)
+    re_cmd = _rans_compare(st, fr, n_steps, tag, "cmd lanes", smi)
+    e5, st, fr, counts = _generic_compare(got, opts, device, tag, smi)
+    re_lit = _rans_compare(st, fr, counts, tag, "generic lit lanes", smi)
     n = len(fmt.deserialize(ref)[2])
     launches, mbps = _encode_runs(
         data, ref, opts, {"cmd_pass": cmd_pass,
@@ -845,7 +866,10 @@ def phase_q11_mix(data: bytes, device, smi: str):
     print(f"[q11-mix-main] device encode {mbps:.2f} MB/s against "
           f"native.compress {len(data) / t_ref / 1e6:.2f} MB/s in this run "
           f"| {smi}")
-    return e5, launches["deferred_pass"]
+    return {"cmd_pass": (cmd, launches["cmd_pass"]),
+            "deferred_pass": (e5, launches["deferred_pass"]),
+            "encode_lanes": (_sum_entries([re_cmd, re_lit]),
+                             launches["encode_lanes"])}
 
 
 def main() -> int:
@@ -875,6 +899,7 @@ def main() -> int:
     decode_src = "divans_tpu/codec/pallas_decode.py:182"
     lit_src = "divans_tpu/codec/pallas_lit_pass.py:99"
     rans_src = "divans_tpu/ans/pallas_kernels.py:57"
+    cmd_src = "divans_tpu/codec/pallas_cmd_pass.py:144"
     generic_src = "divans_tpu/codec/pallas_model.py:100"
     rows = [("lit_decode_chunk", lit_decode, "quality-10 decode", dec,
              dec_launches, decode_src),
@@ -890,18 +915,24 @@ def main() -> int:
             # plain_ms and bound_ms are the two launches' sum
             ("encode_lanes", rans_encode, "quality-11 encode",
              q11["encode_lanes"], q11_launches["encode_lanes"], rans_src),
-            # compared on the mix first batch's generic lit lanes
+            # compared on each profile's first batch's generic lit lanes
             ("encode_lanes", rans_encode, "mix-profile encode",
              *mix["encode_lanes"], rans_src),
+            ("encode_lanes", rans_encode, "stride-profile encode",
+             *stride["encode_lanes"], rans_src),
+            # cmd lanes and generic lit lanes, summed as at quality 11
+            ("encode_lanes", rans_encode, "quality-11 mix-profile encode",
+             *q11_mix["encode_lanes"], rans_src),
             ("cmd_pass", cmd_pass, "quality-11 encode", q11["cmd_pass"],
-             q11_launches["cmd_pass"],
-             "divans_tpu/codec/pallas_cmd_pass.py:144"),
+             q11_launches["cmd_pass"], cmd_src),
+            ("cmd_pass", cmd_pass, "quality-11 mix-profile encode",
+             *q11_mix["cmd_pass"], cmd_src),
             ("deferred_pass", deferred_pass, "mix-profile encode",
              *mix["deferred_pass"], generic_src),
             ("deferred_pass", deferred_pass, "stride-profile encode",
-             *stride, generic_src),
+             *stride["deferred_pass"], generic_src),
             ("deferred_pass", deferred_pass, "quality-11 mix-profile encode",
-             *q11_mix, generic_src)]
+             *q11_mix["deferred_pass"], generic_src)]
     kernels = [{
         "name": k_name, "path": path, "route": "cuda",
         "source": f"divans_tpu_torch/csrc/{mod.NAME}.cu",

@@ -15,7 +15,10 @@ ctypes) or raises; on a CPU tensor it runs `deferred_pass_plain`, the
 same function as a loop over chunks: a gather from the frozen snapshot
 for the row fetch, `index_add_` for the chunk's per-row pend, and a
 commit of the rows the previous chunk touched.  The kernel source
-documents the contract.
+documents the contract.  Both raise on a live step out of range before
+they read it: check_trace, which on the card waits for it, unless the
+caller has checked each lane on the host with check_lane (the encode
+does, in its host pool) and says so with `checked=True`.
 
 A lane is one stream (a frame's cmd stream, or one literal sub-stream
 rebased to the literal sub-model) coded against a fresh model of R rows
@@ -78,9 +81,23 @@ def pad_traces(traces: list[np.ndarray], multiple: int) -> np.ndarray:
     return out
 
 
+_RANGE_ERROR = ("a step's flat or cm_idx outside [0, {}), its value outside "
+                "[0, 16) or its which outside {{0, 1}}")
+
+
+def check_lane(trace: np.ndarray, num_rows: int) -> None:
+    """Raise unless every step of one lane's trace int32 [n, 10] has its
+    rows, symbol and mixer in range: check_trace on the host, before the
+    lane is padded and uploaded (no device sync)."""
+    cols = trace[:, [0, 7, 1, 6]]
+    if ((cols < 0) | (cols >= np.array([num_rows, num_rows, 16, 2]))).any():
+        raise ValueError(_RANGE_ERROR.format(num_rows))
+
+
 def check_trace(trace, counts, num_rows: int) -> None:
     """Raise unless every live step's rows, symbol and mixer lie in
-    range (the kernel reads nothing else)."""
+    range (the kernel reads nothing else).  On a CUDA tensor this waits
+    for the card."""
     n = trace.shape[1]
     live = (torch.arange(n, device=trace.device)[None, :]
             < counts[:, None])[..., None]
@@ -88,13 +105,14 @@ def check_trace(trace, counts, num_rows: int) -> None:
     hi = torch.tensor([num_rows, num_rows, 16, 2], device=trace.device)
     cols = trace[:, :, [0, 7, 1, 6]]
     if bool((((cols < lo) | (cols >= hi)) & live).any()):
-        raise ValueError(f"a step's flat or cm_idx outside [0, {num_rows}), "
-                         "its value outside [0, 16) or its which outside "
-                         "{0, 1}")
+        raise ValueError(_RANGE_ERROR.format(num_rows))
 
 
-def deferred_pass(trace, counts, num_rows: int, chunk: int):
-    """(starts, freqs) int32 [B, N] of every lane's trace steps."""
+def deferred_pass(trace, counts, num_rows: int, chunk: int,
+                  checked: bool = False):
+    """(starts, freqs) int32 [B, N] of every lane's trace steps.
+    `checked`: every live step already passed check_lane on the host, so
+    a launch skips check_trace and the device sync it costs."""
     global LAUNCHES
     dev = trace.device
     if dev.type == "cpu":
@@ -110,7 +128,8 @@ def deferred_pass(trace, counts, num_rows: int, chunk: int):
                          f"[16, 1024] dividing N = {n}")
     if num_rows < 1:
         raise ValueError(f"{num_rows} rows: the model needs at least one")
-    check_trace(trace, torch.clamp(counts, 0, n), num_rows)
+    if not checked:
+        check_trace(trace, torch.clamp(counts, 0, n), num_rows)
     lib = build()
     starts = torch.empty((b, n), dtype=torch.int32, device=dev)
     freqs = torch.empty((b, n), dtype=torch.int32, device=dev)

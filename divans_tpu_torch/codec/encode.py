@@ -38,6 +38,7 @@ packed envelope).  No frame's literals are coded on the host.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -57,14 +58,17 @@ HYBRID_BATCH = 16   # frames per device batch, as in the reference
 
 # frames whose cmd / lit stream each path coded since the last reset:
 # "device" the specialised kernel (cmd pass, lit pass), "generic" the
-# generic deferred pass, "host" the host coder
+# generic deferred pass, "host" the host coder (cmd streams only: every
+# frame's literals go to one of the two passes)
 STATS = {"cmd_device": 0, "cmd_generic": 0, "cmd_host": 0,
-         "lit_device": 0, "lit_generic": 0, "lit_host": 0}
+         "lit_device": 0, "lit_generic": 0}
 
 # the model pass of each job (batch_jobs), called with its arrays on the
-# device and then its scalar arguments
-PASSES = {"cmd": cmd_pass.cmd_pass, "cmd_generic": deferred_pass.deferred_pass,
-          "lit": lit_pass.lit_pass, "lit_generic": deferred_pass.deferred_pass}
+# device and then its scalar arguments; host_frame has range-checked
+# the generic jobs' traces
+_generic = functools.partial(deferred_pass.deferred_pass, checked=True)
+PASSES = {"cmd": cmd_pass.cmd_pass, "cmd_generic": _generic,
+          "lit": lit_pass.lit_pass, "lit_generic": _generic}
 
 
 def reset_stats() -> None:
@@ -78,10 +82,10 @@ class HostFrame(NamedTuple):
     cmd: bytes | None
     cmd_row: np.ndarray | None     # uint16 cmd steps (pack_cmd_rows)
     cmd_spd: tuple | None          # (inc, lim) int32[lit_base]
-    cmd_trace: np.ndarray | None   # int32 [n, 10] cmd trace
+    cmd_trace: np.ndarray | None   # int32 [n, 10] cmd trace, checked
     lit_row: np.ndarray | None     # uint16 literal bytes (pack_lit)
     lit_spd: np.ndarray | None     # int32[6]
-    lit_trace: np.ndarray | None   # int32 [n, 10] rebased lit trace
+    lit_trace: np.ndarray | None   # int32 [n, 10] rebased lit trace, checked
 
 
 def _rebase_lit(t: np.ndarray, lit_base: int) -> np.ndarray:
@@ -155,7 +159,8 @@ def host_frame(raw: bytes, options, layout, chunk: int) -> HostFrame:
     card on the uniform path (options beyond the mechanical trace, as in
     the reference): to the cmd pass when its speeds are constant per
     row, else to the generic pass.  The literals go to the lit pass when
-    pack_lit takes them, else to the generic pass."""
+    pack_lit takes them, else to the generic pass.  A trace for the
+    generic pass is range-checked here (deferred_pass.check_lane)."""
     lit_base = layout.segments["lit_hi"][0]
     trace = frame_trace(raw, options, layout)
     hybrid = native.supports(options)
@@ -178,6 +183,10 @@ def host_frame(raw: bytes, options, layout, chunk: int) -> HostFrame:
     if packed is not None:
         lit_row, lit_spd = packed[:2]
         lit_t = None
+    if cmd_t is not None:
+        deferred_pass.check_lane(cmd_t, lit_base)
+    if lit_t is not None:
+        deferred_pass.check_lane(lit_t, layout.num_rows - lit_base + 1)
     return HostFrame(cmd_b, cmd_row, cmd_spd, cmd_t, lit_row, lit_spd, lit_t)
 
 
@@ -356,13 +365,10 @@ def compress_frames(blocks, options, layout, chunk: int, device,
             for i, g in zip(idxs, got):
                 cmd[i] = g.cmd
             jobs, places = batch_jobs(got, idxs, layout, chunk)
-            done = {"cmd": 0, "lit": 0}
             for (name, _a, _p), (stream, frames) in zip(jobs, places):
                 key = "device" if name == stream else "generic"
                 STATS[f"{stream}_{key}"] += len(frames)
-                done[stream] += len(frames)
-            STATS["cmd_host"] += len(got) - done["cmd"]
-            STATS["lit_host"] += len(got) - done["lit"]
+            STATS["cmd_host"] += sum(g.cmd is not None for g in got)
             if not jobs:
                 continue
             marks = None

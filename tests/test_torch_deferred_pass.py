@@ -27,6 +27,9 @@ from divans_tpu.options import DivansOptions as JOptions
 
 from divans_tpu_torch.codec import deferred_pass, encode
 from divans_tpu_torch.codec.deferred import cmd_chunk
+from divans_tpu_torch.codec.layout import (ModelLayout, PROFILES,
+                                           profile_for_options)
+from divans_tpu_torch.options import DivansOptions
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 256
@@ -237,6 +240,46 @@ def test_rows_out_of_range_raise():
     st, _fr = deferred_pass.deferred_pass(torch.from_numpy(tr),
                                           torch.from_numpy(counts), 10, 32)
     assert st.shape == (1, 128)
+
+
+@pytest.mark.parametrize("col,bad", [(0, 10), (7, -1), (1, 16), (6, 2)],
+                         ids=["flat", "cm_idx", "value", "which"])
+def test_host_check_rejects_what_the_card_check_rejects(col, bad):
+    """check_lane (on the host, before the upload) raises on the same
+    steps as check_trace, and a lane it passed still meets the plain
+    version's check when the wrapper is told it was checked."""
+    rng = np.random.default_rng(10)
+    t = _synthetic(rng, 100, 10, 24, 0x2000)
+    deferred_pass.check_lane(t, 10)
+    trace, counts = encode.generic_inputs([t], 32)
+    st, _fr = deferred_pass.deferred_pass(torch.from_numpy(trace),
+                                          torch.from_numpy(counts), 10, 32,
+                                          checked=True)
+    assert st.shape == (1, 128)
+    t[50, col] = bad
+    with pytest.raises(ValueError, match="outside"):
+        deferred_pass.check_lane(t, 10)
+
+
+@pytest.mark.parametrize("kw", [dict(use_context_map=False),
+                                dict(force_stride_value=4)],
+                         ids=["stride", "mix"])
+def test_host_frame_checks_generic_traces(monkeypatch, kw):
+    """A frame whose literals take the generic pass has its rebased lit
+    trace range-checked in the host pool (host_frame), so the card's
+    launch needs no check of its own: a row past the lit sub-model
+    raises there."""
+    opts = DivansOptions(metablock_size=4096, chunk_nibbles=CHUNK, **kw)
+    layout = ModelLayout(PROFILES[profile_for_options(opts)],
+                         lo_bucketed=True)
+    raw = _data(4096, 11)
+    got = encode.host_frame(raw, opts, layout, CHUNK)
+    assert got.lit_trace is not None and got.lit_row is None
+    trace = encode.frame_trace(raw, opts, layout)
+    trace[np.flatnonzero(trace[:, 2] == 1)[3], 0] = layout.num_rows
+    monkeypatch.setattr(encode, "frame_trace", lambda *a: trace)
+    with pytest.raises(ValueError, match="outside"):
+        encode.host_frame(raw, opts, layout, CHUNK)
 
 
 def test_padding_and_split_match_reference():

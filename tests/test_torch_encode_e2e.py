@@ -92,7 +92,7 @@ def test_no_mixing_matches_native():
 def test_other_profiles_code_literals_on_the_host(kw):
     """Frames outside the packed envelope (the stride and mix profiles)
     have their literals coded by the generic deferred pass, none on the
-    host: the same bytes."""
+    host: the same bytes.  (The name is from when the host coded them.)"""
     data = _corpus(40000, seed=13)
     got, ref, stats = _compress(data, metablock_size=1 << 14, **kw)
     assert got == ref
@@ -209,7 +209,8 @@ def test_q11_native_compress_matches_reference(kw, dictionary_indexes):
 def test_q11_mix_profile_codes_literals_on_the_host(dictionary_indexes):
     """A forced stride (the mix profile) keeps the cmd streams on the
     cmd pass and codes the literals with the generic deferred pass, none
-    on the host: the same bytes."""
+    on the host: the same bytes.  (The name is from when the host coded
+    them.)"""
     data = _corpus(30000, seed=18)
     got, ref, stats = _compress(data, metablock_size=1 << 14, quality=11,
                                 force_stride_value=4)
@@ -233,7 +234,8 @@ def test_q11_cmd_speeds_outside_the_contract_raise(monkeypatch,
                                                    dictionary_indexes):
     """A quality-11 frame whose cmd rows are not each at one speed is
     outside the cmd pass's contract: its cmd stream takes the generic
-    deferred pass (jax_engine.py:670-675), the reference's bytes."""
+    deferred pass (jax_engine.py:670-675), the reference's bytes.  (The
+    name is from when such a frame raised.)"""
     monkeypatch.setattr(encode.cmd_pass, "cmd_speeds_from_rows",
                         lambda ts, r: None)
     data = _corpus(20000, seed=20)
