@@ -22,13 +22,17 @@ Phases, each printing its line; any failure raises and exits non-zero:
   6. decode kernel against its plain version: the main path's first
      lane group of that container, taken on until every lane has a job
      (so every thread block of the kernel decodes), runs twice on the
-     card, once launching the kernel and once with the plain PyTorch
-     version, on the same tensors; every chunk's bytes, ctx, state, p1,
-     p2 and pulls must be equal;
+     card, once as the kernel's one launch and once as the plain group
+     decode (the chunk loop in PyTorch), on the same tensors; the bytes
+     and every lane's final carry (state, cursor, p1, p2, n_rem, queue
+     position, committed model, weights, pend) must be equal; then one
+     launch is timed back to back against its bound;
   7. decode main path: after one warm decode, the container is
      decompressed on the card through divans_tpu_torch.decompress three
      times; the output must equal the corpus, the kernel must have
-     launched and no frame may have left the device path;
+     launched (once a lane group) and no frame may have left the device
+     path; one more decode with CUDA events around each group's launch,
+     then the host stages alone (structure pass, CRC);
   8. quality 11: the corpus's first 16 MiB and its host-only quality-11
      container (native.compress: the matcher's command lists with
      dictionary edges through the trace FSM): the reference bytes;
@@ -45,7 +49,8 @@ Phases, each printing its line; any failure raises and exits non-zero:
      container's first lane group, as in phase 6 (every lane that has a
      job live);
  12. quality-11 round trip: divans_tpu_torch.decompress of that
-     container on the card equals the 16 MiB, no frame on the host;
+     container on the card equals the 16 MiB, no frame on the host, the
+     kernel launched once a lane group;
  13. the mix profile (force_stride_value=4, quality 10) on the whole
      corpus, whose literals the generic deferred pass codes: the
      host-only reference; on the first batch's generic literal lanes
@@ -128,6 +133,17 @@ LIT_PASS_OPS_PER_ENTRY = 4
 RANS_OPS_PER_SYMBOL = 40
 CMD_PASS_OPS_PER_STEP = 90
 CMD_PASS_OPS_PER_ENTRY = 6
+# the fused literal decode: ~40 a decoded nibble on the chain (word
+# select, 15 compares and adds, two grid loads, the state update, the
+# next context), ~110 a nibble for its adjustment and counts (four exact
+# floor divisions, the bit length, two clamps, the atomic), and per chunk
+# a lane decodes ~40 a premixed entry (the average, one exact floor
+# division for the grid) over 192 x 16 and ~6 a committed entry (the
+# add, the cumulative count, one renorm pass) over 385 x 16
+DECODE_OPS_PER_NIBBLE = 40
+ADJ_OPS_PER_NIBBLE = 110
+PREMIX_OPS_PER_ENTRY = 40
+COMMIT_OPS_PER_ENTRY = 6
 GENERIC_OPS_PER_STEP = 100
 GENERIC_OPS_PER_MIX_STEP = 150
 GENERIC_OPS_PER_COMMIT = 100
@@ -458,78 +474,64 @@ def phase_reference(corpus: bytes) -> bytes:
     return blob
 
 
-def phase_compare(blob: bytes, device, tag: str) -> dict:
-    """Kernel against its plain version on every chunk of the main path's
-    first lane group (every lane that has a job live); returns the
-    kernel's entry numbers (max_abs_err, ms, plain_ms, bound)."""
+def _group_work(queues, carry, n_steps: int, s: int):
+    """(bytes, operations) one group launch needs.  Bytes: the renorm
+    words up to each lane's final cursor, each stream's tables (lcmap,
+    speeds, state, count, offset), the luts and perm read once; the
+    bytes, the scalars, the committed model and the pend written once.
+    Operations: DECODE_OPS_PER_NIBBLE and ADJ_OPS_PER_NIBBLE for each
+    decoded nibble, and for each chunk a lane decodes, the premix of 192
+    x 16 entries and the commit of 385 x 16."""
+    n_lit = queues.n_lit.astype(np.int64)
+    n_bytes_dec = int(n_lit.sum())
+    lane_chunks = int(((n_lit + s - 1) // s).sum())
+    n_streams = int((n_lit > 0).sum())
+    lanes = queues.words.shape[0]
+    words = int(((carry["cursor"].long() + 1) // 2).sum()) * 4
+    out = lanes * n_steps * s + sum(int(v.numel()) * 4 for v in carry.values())
+    n_bytes = words + n_streams * (64 + 6 + 3) * 4 + (512 + 384) * 4 + out
+    n_ops = ((DECODE_OPS_PER_NIBBLE + ADJ_OPS_PER_NIBBLE) * 2 * n_bytes_dec
+             + (PREMIX_OPS_PER_ENTRY * 192 * 16
+                + COMMIT_OPS_PER_ENTRY * 385 * 16) * lane_chunks)
+    return n_bytes, n_ops, n_bytes_dec, lane_chunks
+
+
+def phase_compare(blob: bytes, device, tag: str, smi: str) -> dict:
+    """The fused decode kernel against the plain group decode on the
+    main path's first lane group (every lane that has a job live): equal
+    bytes and an equal final carry of every lane; then one launch timed
+    back to back.  Returns the kernel's entry numbers (max_abs_err, ms,
+    plain_ms, bound)."""
     queues, n_steps, layout, chunk, n_frames, n_lanes = _first_group(blob)
-    runs = {"kernel": [], "plain": []}
-    busiest = [-1, None]   # the chunk with the most bytes to decode
-    max_live = [0]         # most lanes live in one chunk
-
-    def recorder(fn, log):
-        def call(model, words, lcmap, luts, sc_in, s):
-            n_act = int(torch.clamp(sc_in[3], 0, s).sum())
-            max_live[0] = max(max_live[0], int((sc_in[3] > 0).sum()))
-            if n_act > busiest[0]:
-                busiest[:] = [n_act, tuple(t.clone() for t in
-                                           (model, words, lcmap, luts, sc_in))]
-            res = fn(model, words, lcmap, luts, sc_in, s)
-            log.append(tuple(t.clone() for t in res))
-            return res
-        return call
-
-    out_k = decode.decode_lanes(queues, n_steps, chunk, layout, device,
-                                chunk_fn=recorder(lit_decode.lit_decode_chunk,
-                                                  runs["kernel"]))
-    out_p = decode.decode_lanes(queues, n_steps, chunk, layout, device,
-                                chunk_fn=recorder(
-                                    lit_decode.lit_decode_chunk_plain,
-                                    runs["plain"]))
-    torch.cuda.synchronize()
-    assert len(runs["kernel"]) == len(runs["plain"]) == n_steps
-    max_err = 0
-    for step, (k, p) in enumerate(zip(runs["kernel"], runs["plain"])):
-        for name, a, b in zip(("bytes", "ctx", "sc_out"), k, p):
-            err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-            max_err = max(max_err, err)
-            assert err == 0, f"chunk {step}: kernel {name} differs by {err}"
-    assert torch.equal(out_k, out_p)
-    b = out_k.shape[0]
-    assert max_live[0] == n_lanes, \
-        f"{max_live[0]} lanes decoded, {n_lanes} have a job"
-
-    n_act, (model, words, lcmap, luts, sc_in) = busiest
+    q, perm, n_pass = decode.group_inputs(queues, chunk, layout, device)
     s = chunk // 2
-    ms = _cuda_ms(lambda: lit_decode.lit_decode_chunk(
-        model, words, lcmap, luts, sc_in, s), 50)
-    plain_ms = _cuda_ms(lambda: lit_decode.lit_decode_chunk_plain(
-        model, words, lcmap, luts, sc_in, s), 2)
-    _b, _c, sc_out = lit_decode.lit_decode_chunk(model, words, lcmap, luts,
-                                                 sc_in, s)
-    n_live = int((sc_in[3] > 0).sum())
-    # bytes: every input read once (each live lane's planes and lcmap, the
-    # luts, the scalars, and the renorm words this chunk pulls), every
-    # output written once; a lane with nothing left reads no plane
-    n_bytes = (n_live * (model[0].numel() * 2 + lcmap[0].numel() * 4)
-               + luts.numel() * 4 + sc_in.numel() * 4
-               + int(sc_out[3].sum()) * 2 + 2 * b * s + sc_out.numel() * 4)
-    # operations: ~64 integer ops per nibble (word select, 15 compares and
-    # adds, 16 selects, 2 divisions, the state update) x 2 nibbles per
-    # decoded byte
-    n_ops = 64 * 2 * n_act
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
-    print(f"[{tag}] first lane group ({n_frames} frames): {n_steps} "
-          f"chunks x {b} lanes, {max_live[0]} lanes live (every lane with "
-          f"a job): kernel == plain on "
-          f"bytes, ctx, state, p1, p2, pulls (max_abs_err {max_err}) | "
-          f"busiest chunk ({n_live} lanes live, {n_act} bytes decoded, "
-          f"{n_bytes} bytes moved): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.6f} ms")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    live = int((q["counts"] > 0).sum())
+    assert live == n_lanes, f"{live} lanes have a job, expected {n_lanes}"
+    (out_p, carry_p), plain_ms = _cuda_ms_once(
+        lambda: lit_decode.decode_group_plain(q, perm, n_pass, n_steps, s))
+    out_k, carry_k = lit_decode.decode_group(q, perm, n_pass, n_steps, s)
+    torch.cuda.synchronize()
+    assert set(carry_k) == set(carry_p) == set(lit_decode.CARRY)
+    errs = {k: _max_err([(carry_k[k], carry_p[k])]) for k in lit_decode.CARRY}
+    errs["bytes"] = _max_err([(out_k, out_p)])
+    max_err = max(errs.values())
+    assert max_err == 0, f"[{tag}] decode_group differs from its plain " \
+        f"version: {errs}"
+    ms = _cuda_ms(lambda: lit_decode.decode_group(q, perm, n_pass, n_steps,
+                                                  s), 5)
+    n_bytes, n_ops, n_dec, lane_chunks = _group_work(queues, carry_k,
+                                                     n_steps, s)
+    e = _entry(ms, plain_ms, n_bytes, n_ops, max_err)
+    print(f"[{tag}] first lane group ({n_frames} frames): {n_steps} chunks "
+          f"x {out_k.shape[0]} lanes, {live} lanes with a job, {n_dec} "
+          f"bytes decoded over {lane_chunks} lane-chunks, {n_pass} renorm "
+          f"passes a commit | decode_group kernel == plain on the bytes and "
+          f"every lane's final carry ({', '.join(lit_decode.CARRY)}; "
+          f"max_abs_err {max_err}): kernel {ms:.4f} ms a launch "
+          f"({ms / n_steps * 1e3:.2f} us a chunk), plain {plain_ms:.2f} ms, "
+          f"bound {e['bound_ms']:.6f} ms by {e['bound_by']} "
+          f"({e['n_bytes']} B, {e['n_ops']} ops) | {smi}")
+    return e
 
 
 def phase_main(blob: bytes, corpus: bytes, device, smi: str) -> int:
@@ -556,25 +558,38 @@ def phase_main(blob: bytes, corpus: bytes, device, smi: str) -> int:
     assert stats == {"device_frames": n_frames, "host_frames": 0}, stats
     mbps = len(corpus) / min(times) / 1e6
 
-    # one more decode with per-step CUDA events: kernel vs commit time
-    _w, _mb, frames, _crc, flags = fmt.deserialize(blob)
+    # one more decode with CUDA events around each group's launch, then
+    # the host stages alone: the structure pass on the decode's 8
+    # threads, and the CRC check
+    _w, _mb, frames, crc, flags = fmt.deserialize(blob)
+    chunk = flags_to_chunk(flags)
+    layout = ModelLayout(PROFILES["cm"], lo_bucketed=True)
     timing: list = []
-    raw = decode.decompress_frames(
-        frames, flags_to_chunk(flags),
-        ModelLayout(PROFILES["cm"], lo_bucketed=True), device, timing=timing)
+    t0 = time.perf_counter()
+    raw = decode.decompress_frames(frames, chunk, layout, device,
+                                   timing=timing)
+    wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     assert raw == corpus
-    kernel_ms = sum(e[1].elapsed_time(e[2]) for e, _h in timing)
-    commit_ms = sum(e[0].elapsed_time(e[1]) + e[2].elapsed_time(e[3])
-                    for e, _h in timing)
+    kernel_ms = sum(e[0].elapsed_time(e[1]) for e, _h in timing)
     issue_ms = sum(h for _e, h in timing) * 1e3
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda f: decode.decode_structure(f, chunk, layout),
+                    frames))
+    t_struct = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fmt.check_crc(raw, crc)
+    t_crc = time.perf_counter() - t0
     print(f"[dec-main] decode e2e {mbps:.2f} MB/s best of 3 after a warm one "
           f"({', '.join(f'{t:.3f}' for t in times)} s) | kernel launches "
-          f"{launches} per decode, frames {stats} | {smi}")
-    print(f"[dec-main] timed decode: kernel {kernel_ms:.1f} ms over "
-          f"{len(timing)} launches ({kernel_ms / len(timing):.4f} ms each), "
-          f"commit {commit_ms:.1f} ms (device timeline); host time issuing "
-          f"the steps {issue_ms:.1f} ms | {smi}")
+          f"{launches} per decode (one a lane group), frames {stats} | {smi}")
+    print(f"[dec-main] timed decode ({wall:.3f} s wall, CRC not included): "
+          f"kernel {kernel_ms:.1f} ms over {len(timing)} group launches "
+          f"({kernel_ms / len(timing):.4f} ms each, device timeline); host "
+          f"time issuing the groups {issue_ms:.1f} ms | host stages alone: "
+          f"structure pass {t_struct:.3f} s on 8 threads, CRC {t_crc:.3f} s "
+          f"| {smi}")
     return launches
 
 
@@ -883,13 +898,13 @@ def main() -> int:
     blob = phase_reference(corpus)
     enc = phase_encode_compare(corpus, device, smi)
     enc_launches = phase_encode_main(corpus, blob, smi)
-    dec = phase_compare(blob, device, "dec-compare")
+    dec = phase_compare(blob, device, "dec-compare", smi)
     dec_launches = phase_main(blob, corpus, device, smi)
     corpus16 = corpus[:Q11_BYTES]
     blob16 = phase_q11_reference(corpus16)
     q11 = phase_q11_compare(corpus16, device, smi)
     q11_launches = phase_q11_main(corpus16, blob16, smi)
-    dec16 = phase_compare(blob16, device, "q11-dec-compare")
+    dec16 = phase_compare(blob16, device, "q11-dec-compare", smi)
     dec16_launches = phase_q11_roundtrip(blob16, corpus16, smi)
     mix = phase_mix(corpus, device, smi)
     stride = phase_stride(corpus[:STRIDE_BYTES], device, smi)
@@ -901,9 +916,9 @@ def main() -> int:
     rans_src = "divans_tpu/ans/pallas_kernels.py:57"
     cmd_src = "divans_tpu/codec/pallas_cmd_pass.py:144"
     generic_src = "divans_tpu/codec/pallas_model.py:100"
-    rows = [("lit_decode_chunk", lit_decode, "quality-10 decode", dec,
+    rows = [("decode_group", lit_decode, "quality-10 decode", dec,
              dec_launches, decode_src),
-            ("lit_decode_chunk", lit_decode, "quality-11 decode", dec16,
+            ("decode_group", lit_decode, "quality-11 decode", dec16,
              dec16_launches, decode_src),
             ("lit_pass", lit_pass, "quality-10 encode", enc["lit_pass"],
              enc_launches["lit_pass"], lit_src),

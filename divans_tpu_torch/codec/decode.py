@@ -6,13 +6,15 @@ Three stages, as in the reference:
      (native.decode_cmd_structure), on a thread pool;
   2. the device decodes every literal byte: 128 persistent worker lanes
      each work through a queue of literal sub-streams (pack_lane_queues);
-     per chunk the CUDA kernel (lit_decode.lit_decode_chunk) decodes
-     against the frozen, premixed model, then the commit below applies
-     the previous chunk's updates (the deferred profile's one-chunk lag);
+     one launch of the CUDA kernel (lit_decode.decode_group) runs a whole
+     lane group: per chunk the stream switch, the premix, the decode
+     against the frozen model and the commit of the previous chunk's
+     updates (the deferred profile's one-chunk lag);
   3. host C++ executes the command scripts (native.execute_script) into
      one preallocated output buffer, on a 2-thread finish pool.
 
-The commit is plain PyTorch on int32 tensors (codec/lit_model.py, shared
+The plain version of stage 2 (lit_decode.decode_group_plain) keeps the
+commit in plain PyTorch on int32 tensors (codec/lit_model.py, shared
 with the encode's literal model pass), as it was XLA (not Pallas) in
 the reference.  Layout is natural: per lane, a model of 385 rebased
 literal rows x 16 CDF entries ([B, R, 16]).
@@ -29,10 +31,8 @@ import numpy as np
 import torch
 
 from .. import constants, native
-from ..probability import cdf16
-from ..probability.weights import bit_length_pos
 from . import lit_decode, lit_model
-from .deferred import ADJ_CLAMP, SUB_LIT, lit_subs_split
+from .deferred import SUB_LIT, lit_subs_split
 
 LANES = 128
 GROUP_CHUNKS = 128               # chunk slots per lane per issued group
@@ -164,18 +164,13 @@ def from_tpu_lane_arrays(arrays) -> LaneQueues:
                       spd_all.astype(np.int32), _unpack6(luts[:, 0]))
 
 
-# ------------------------------------------------------------------ commit
-
-def _adj_tables(mix, cm, nib):
-    """Per-(plane, sym) mixer adjustments of one nibble class under the
-    chunk-frozen tables, [B, P, 16] each for (cm, nib): every byte's
-    adjustment is a function of (plane, sym) alone, so the chunk's sum
-    is sum(count * adj)."""
-    fw = cdf16.freqs_all(mix)
-    error = (1 << 15) - fw
-    shift = torch.clamp(bit_length_pos(fw * error) - 15, min=0)
-    return [torch.clamp((error * (n - fw)) >> shift, -ADJ_CLAMP, ADJ_CLAMP)
-            for n in (cdf16.freqs_all(cm), cdf16.freqs_all(nib))]
+def group_inputs(queues: LaneQueues, chunk: int, layout, device):
+    """A lane group's inputs to lit_decode.decode_group: (the queue
+    tensors on `device`, perm int32[384], renorm passes a commit)."""
+    dev = torch.device(device)
+    perm = torch.from_numpy(lit_model.planes(layout)).to(dev)
+    return (queues.to(dev), perm,
+            lit_model.renorm_passes(queues.spd, chunk // 2))
 
 
 @torch.inference_mode()
@@ -185,102 +180,25 @@ def decode_lanes(queues: LaneQueues, n_steps: int, chunk: int, layout,
     uint8[L, n_steps * chunk//2] on `device` (a stream placed at chunk
     offset c starts at column c * chunk//2).
 
-    chunk_fn defaults to the kernel wrapper; a caller may pass another
-    function of the same signature (the plain version, to compare).
-    With `timing`, each step appends (four CUDA events: step start,
-    kernel start, kernel end, step end; the host seconds spent issuing
-    the step): the commit is the step less the kernel."""
-    chunk_fn = chunk_fn or lit_decode.lit_decode_chunk
-    perm_np = lit_model.planes(layout)
+    The group is one lit_decode.decode_group call: one kernel launch on
+    the card, the plain chunk loop on the CPU.  chunk_fn, for tests on
+    the CPU, runs the plain loop with that function of
+    lit_decode_chunk_plain's signature in place of it.  With `timing`
+    (on the card), the group appends ((CUDA events before and after the
+    launch), the host seconds spent issuing it)."""
+    q, perm, n_pass = group_inputs(queues, chunk, layout, device)
     s = chunk // 2
-    n_pass = lit_model.renorm_passes(queues.spd, s)
-    dev = torch.device(device)
-    q = queues.to(dev)
-    words, counts, luts = q["words"], q["counts"], q["luts"]
-    b = counts.shape[0]
-    i32 = dict(dtype=torch.int32, device=dev)
-    lanes = torch.arange(b, device=dev)
-    perm = torch.from_numpy(perm_np).long().to(dev)
-    perm2 = lit_model.perm_cm2(dev)
-    byte_iota = torch.arange(s, **i32)
-
-    committed0, weights0, pend = lit_model.init_state(b, dev)
-    committed, weights = committed0, weights0
-    fidx = torch.zeros(b, dtype=torch.long, device=dev)
-    state = q["state0"][0].clone()
-    cursor = q["woff"][0] * 2
-    p1 = torch.zeros(b, **i32)
-    p2 = torch.zeros(b, **i32)
-    n_rem = q["n_lit"][0].clone()
-    out = torch.empty((b, n_steps * s), dtype=torch.uint8, device=dev)
-
-    for step in range(n_steps):
-        if timing is not None:
-            t_host = time.perf_counter()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-        # ---- stream switch: an exhausted lane with more queued loads its
-        # next stream and resets model, mixer, pend, ANS state, context
-        nxt = fidx + 1
-        sw = (n_rem <= 0) & (nxt < counts)
-        fidx = torch.where(sw, nxt, fidx)
-        state = torch.where(sw, q["state0"][fidx, lanes], state)
-        cursor = torch.where(sw, q["woff"][fidx, lanes] * 2, cursor)
-        p1 = torch.where(sw, 0, p1)
-        p2 = torch.where(sw, 0, p2)
-        n_rem = torch.where(sw, q["n_lit"][fidx, lanes], n_rem)
-        lcmap = q["lcmap"][fidx, lanes]
-        spd = q["spd"][fidx, lanes]
-        swb = sw[:, None, None]
-        committed = torch.where(swb, committed0, committed)
-        weights = torch.where(swb, weights0, weights)
-        pend = tuple(torch.where(sw.view(-1, *[1] * (p.ndim - 1)), 0, p)
-                     for p in pend)
-
-        # ---- premix the frozen cm/nib plane pairs once per chunk
-        g = committed[:, perm]                               # [B, 384, 16]
-        nw_lo = (weights[:, 0, 2] & 0xFFFF)[:, None]
-        nw_hi = (weights[:, 1, 2] & 0xFFFF)[:, None]
-        mix_hi = cdf16.average(g[:, 64:128], g[:, 0:64], nw_hi)
-        mix_lo = cdf16.average(g[:, 256:384], g[:, 128:256], nw_lo)
-        kmodel = torch.cat([mix_hi, mix_lo], dim=1).to(torch.int16)
-        sc_in = torch.stack([state, p1, p2, n_rem, cursor])
-        if timing is not None:
-            ev[1].record()
-        bytes_c, ctx_c, sc_out = chunk_fn(kmodel, words, lcmap, luts, sc_in, s)
-        if timing is not None:
-            ev[2].record()
-        out[:, step * s:(step + 1) * s] = bytes_c
-
-        # ---- per-class count histograms (integer index_add_)
-        byte = bytes_c.long()
-        hi, lo = byte >> 4, byte & 15
-        ctx = ctx_c.long()
-        active = byte_iota[None, :] < n_rem[:, None]
-        cnt_hi, cnt_lo = lit_model.count_hists(ctx, hi, lo, active)
-
-        # ---- mixer adjustments: count histograms against adj tables
-        wadj_rows = []
-        for cnt, mix, cm, nib in ((cnt_hi, mix_hi, g[:, 64:128], g[:, 0:64]),
-                                  (cnt_lo, mix_lo, g[:, 256:384],
-                                   g[:, 128:256])):
-            wadj_rows.append(torch.stack(
-                [torch.sum(cnt * a, dim=(1, 2), dtype=torch.int32)
-                 for a in _adj_tables(mix, cm, nib)], dim=-1))
-        wadj = torch.stack([wadj_rows[1], wadj_rows[0]], dim=1)   # [B,2,2]
-
-        new_pend = lit_model.chunk_pend(cnt_hi, cnt_lo, spd, wadj, perm2)
-        # ---- commit the previous chunk's updates (lag 1)
-        committed, weights = lit_model.apply_pend(committed, weights, pend,
-                                                  n_pass)
-        pend = new_pend
-        state = sc_out[0]
-        cursor = cursor + sc_out[3]
-        p1, p2 = sc_out[1], sc_out[2]
-        n_rem = n_rem - s
-        if timing is not None:
-            ev[3].record()
-            timing.append((ev, time.perf_counter() - t_host))
+    if chunk_fn is not None:
+        return lit_decode.decode_group_plain(q, perm, n_pass, n_steps, s,
+                                             chunk_fn)[0]
+    if timing is not None:
+        t_host = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    out, _carry = lit_decode.decode_group(q, perm, n_pass, n_steps, s)
+    if timing is not None:
+        ev[1].record()
+        timing.append((ev, time.perf_counter() - t_host))
     return out
 
 
@@ -352,7 +270,7 @@ def decompress_frames(frames, chunk: int, layout, device,
     Frames outside the lane kernel's envelope (the mix/split/stride
     profiles, or a script the device cannot take) decode host-side
     through native.decode_metablock on the same pool.  `timing` is
-    handed to decode_lanes (per-step CUDA events)."""
+    handed to decode_lanes (CUDA events around each group's launch)."""
     s_bytes = chunk // 2
     need_target = LANES * GROUP_CHUNKS
 

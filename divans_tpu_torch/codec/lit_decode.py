@@ -1,19 +1,25 @@
-"""One chunk of deferred literal decode: the CUDA kernel, its wrapper and
-its plain PyTorch version.
+"""Deferred literal decode of a lane group: the CUDA kernel, its wrapper
+and its plain PyTorch version.
 
-`lit_decode_chunk` is the port of the Pallas kernel
-divans_tpu/codec/pallas_decode.py:182 (`_make_lit_kernel`).  On a CUDA
-tensor it launches csrc/lit_decode.cu (built by cuda_build with nvcc
-for sm_90a at first use, bound through ctypes) or raises; on a CPU
-tensor it runs `lit_decode_chunk_plain`, the same
-function written as a loop over the chunk's bytes with vector ops over
-the lanes.  The kernel source documents the contract.
+`decode_group` is the port of the Pallas kernel
+divans_tpu/codec/pallas_decode.py:182 (`_make_lit_kernel`) together with
+the scan around it, `_decode_lit_scan_q` (:377): every chunk of every
+lane of a group, the stream switches, the premix and the lagged commit.
+On a CUDA tensor it launches csrc/lit_decode.cu once (built by
+cuda_build with nvcc for sm_90a at first use, bound through ctypes) or
+raises; on a CPU tensor it runs `decode_group_plain`, the same function
+written as a loop over the chunks: `lit_decode_chunk_plain` (a loop
+over the chunk's bytes, vector ops over the lanes) decodes each chunk
+against the premixed model, then the commit of codec/lit_model.py.  The
+kernel source documents the contract.
 
-Inputs (natural layout, lanes first): model int16[B,192,16] premixed
-planes, words int32[B,W] packed renorm words (two u16 per int32, little
-word first), lcmap int32[B,64], luts int32[512] (lut0 ++ lut1), sc_in
-int32[5,B] (state, p1, p2, n_rem, halfword cursor).  Outputs: bytes
-uint8[B,s], ctx uint8[B,s], sc_out int32[4,B] (state, p1, p2, pulls).
+Inputs: the lane queues as `decode.LaneQueues.to` gives them (words
+int32[L,W], counts int32[L], state0, n_lit, woff int32[F,L], lcmap
+int32[F,L,64], spd int32[F,L,6], luts int32[512]), perm int32[384]
+(kernel plane -> rebased row, lit_model.planes), the renorm passes of
+each commit, the chunk count and the bytes a chunk.  Outputs: the bytes
+uint8[L, n_steps*s] and the final carry, a dict of int32 tensors
+(CARRY).
 """
 from __future__ import annotations
 
@@ -25,13 +31,23 @@ from .. import cuda_build
 from ..ans.coder_np import RENORM_BITS, SCALE_MASK, STATE_LOW
 from ..constants import LOG2_SCALE
 from ..probability import cdf16
+from ..probability.weights import bit_length_pos
+from . import lit_model
+from .deferred import ADJ_CLAMP
 
 N_HI = 64
 N_PLANES_MIX = 192
 NAME = "lit_decode"
-_SIGNATURES = {"dtpu_lit_decode_chunk": [ctypes.c_void_p, ctypes.c_void_p,
-                                         ctypes.c_int] + [ctypes.c_void_p] * 6
-                + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+_SIGNATURES = {"dtpu_lit_decode_group":
+               [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+               + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9}
+# the final carry of a lane group: per lane scalars [L], the committed
+# model [L,385,16], the mixer weights [L,2,3] and the last chunk's pend
+# (add [L,385,16], limsum and cnt [L,385], wadj [L,2,2])
+SCALARS = ("state", "cursor", "p1", "p2", "n_rem", "fidx")
+CARRY = SCALARS + ("committed", "weights", "add", "limsum", "cnt", "wadj")
+QUEUE_FIELDS = ("words", "counts", "state0", "n_lit", "woff", "lcmap", "spd",
+                "luts")
 
 # kernel launches, counted where the wrapper launches (and nowhere else)
 LAUNCHES = 0
@@ -42,43 +58,169 @@ def build():
     return cuda_build.load(NAME, _SIGNATURES)
 
 
-def lit_decode_chunk(model, words, lcmap, luts, sc_in, s_bytes: int):
-    """Decode one chunk for every lane: (bytes, ctx, sc_out)."""
+def decode_group(q: dict, perm, n_pass: int, n_steps: int, s_bytes: int):
+    """Decode n_steps chunks of every lane of the group q: (bytes, carry)."""
     global LAUNCHES
-    dev = model.device
+    dev = q["words"].device
     if dev.type == "cpu":
-        return lit_decode_chunk_plain(model, words, lcmap, luts, sc_in,
-                                      s_bytes)
+        return decode_group_plain(q, perm, n_pass, n_steps, s_bytes)
     if dev.type != "cuda":
-        raise ValueError(f"lit_decode_chunk runs on cuda or cpu, not {dev}")
-    b = model.shape[0]
+        raise ValueError(f"decode_group runs on cuda or cpu, not {dev}")
+    lanes, w = q["words"].shape
+    f = q["state0"].shape[0]
     check = cuda_build.check
-    check("model", model, torch.int16, (b, N_PLANES_MIX, 16), dev)
-    check("words", words, torch.int32, (b, words.shape[1]), dev)
-    check("lcmap", lcmap, torch.int32, (b, 64), dev)
-    check("luts", luts, torch.int32, (512,), dev)
-    check("sc_in", sc_in, torch.int32, (5, b), dev)
-    if words.shape[1] < 1 or s_bytes < 1:
-        raise ValueError("empty word rows or chunk")
+    i32 = torch.int32
+    for name, shape in (("words", (lanes, w)), ("counts", (lanes,)),
+                        ("state0", (f, lanes)), ("n_lit", (f, lanes)),
+                        ("woff", (f, lanes)), ("lcmap", (f, lanes, 64)),
+                        ("spd", (f, lanes, 6)), ("luts", (512,))):
+        check(name, q[name], i32, shape, dev)
+    check("perm", perm, i32, (lit_model.N_PLANES,), dev)
+    if w < 1 or f < 1 or s_bytes < 1 or n_steps < 0:
+        raise ValueError("empty word rows, queues or chunk")
     lib = build()
-    out_b = torch.empty((b, s_bytes), dtype=torch.uint8, device=dev)
-    out_c = torch.empty((b, s_bytes), dtype=torch.uint8, device=dev)
-    sc_out = torch.empty((4, b), dtype=torch.int32, device=dev)
+    out = torch.empty((lanes, n_steps * s_bytes), dtype=torch.uint8,
+                      device=dev)
+    r = lit_model.R_LIT
+    carry = {"scalars": torch.empty((len(SCALARS), lanes), dtype=i32,
+                                    device=dev)}
+    for name, shape in (("committed", (lanes, r, 16)),
+                        ("weights", (lanes, 2, 3)), ("add", (lanes, r, 16)),
+                        ("limsum", (lanes, r)), ("cnt", (lanes, r)),
+                        ("wadj", (lanes, 2, 2))):
+        carry[name] = torch.empty(shape, dtype=i32, device=dev)
+    if lanes == 0:
+        return out, _unpack(carry)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dtpu_lit_decode_chunk(
-        model.data_ptr(), words.data_ptr(), words.shape[1],
-        lcmap.data_ptr(), luts.data_ptr(), sc_in.data_ptr(),
-        out_b.data_ptr(), out_c.data_ptr(), sc_out.data_ptr(),
-        b, s_bytes, stream)
+    rc = lib.dtpu_lit_decode_group(
+        q["words"].data_ptr(), w,
+        *[q[k].data_ptr() for k in QUEUE_FIELDS[1:]], perm.data_ptr(),
+        lanes, n_steps, s_bytes, n_pass, out.data_ptr(),
+        *[carry[k].data_ptr() for k in ("scalars", "committed", "weights",
+                                        "add", "limsum", "cnt", "wadj")],
+        stream)
     if rc != 0:
-        raise RuntimeError(f"lit_decode_chunk launch failed: CUDA error {rc}")
+        raise RuntimeError(f"decode_group launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return out_b, out_c, sc_out
+    return out, _unpack(carry)
+
+
+def _unpack(carry: dict) -> dict:
+    scalars = carry.pop("scalars")
+    return dict(zip(SCALARS, scalars.unbind(0)), **carry)
+
+
+# ------------------------------------------------------------ plain version
+
+def _adj_tables(mix, cm, nib):
+    """Per-(plane, sym) mixer adjustments of one nibble class under the
+    chunk-frozen tables, [B, P, 16] each for (cm, nib): every byte's
+    adjustment is a function of (plane, sym) alone, so the chunk's sum
+    is sum(count * adj)."""
+    fw = cdf16.freqs_all(mix)
+    error = (1 << 15) - fw
+    shift = torch.clamp(bit_length_pos(fw * error) - 15, min=0)
+    return [torch.clamp((error * (n - fw)) >> shift, -ADJ_CLAMP, ADJ_CLAMP)
+            for n in (cdf16.freqs_all(cm), cdf16.freqs_all(nib))]
+
+
+@torch.inference_mode()
+def decode_group_plain(q: dict, perm, n_pass: int, n_steps: int,
+                       s_bytes: int, chunk_fn=None):
+    """The same function in plain PyTorch: per chunk, the stream switch,
+    the premix, `chunk_fn` (default lit_decode_chunk_plain; a test may
+    pass a spy of the same signature), the count histograms, the mixer
+    sums and the commit (codec/lit_model.py)."""
+    chunk_fn = chunk_fn or lit_decode_chunk_plain
+    s = s_bytes
+    words, counts, luts = q["words"], q["counts"], q["luts"]
+    dev = words.device
+    b = counts.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    lanes = torch.arange(b, device=dev)
+    perm = perm.long()
+    perm2 = lit_model.perm_cm2(dev)
+    byte_iota = torch.arange(s, **i32)
+
+    committed0, weights0, pend = lit_model.init_state(b, dev)
+    committed, weights = committed0, weights0
+    fidx = torch.zeros(b, dtype=torch.long, device=dev)
+    state = q["state0"][0].clone()
+    cursor = q["woff"][0] * 2
+    p1 = torch.zeros(b, **i32)
+    p2 = torch.zeros(b, **i32)
+    n_rem = q["n_lit"][0].clone()
+    out = torch.empty((b, n_steps * s), dtype=torch.uint8, device=dev)
+
+    for step in range(n_steps):
+        # ---- stream switch: an exhausted lane with more queued loads its
+        # next stream and resets model, mixer, pend, ANS state, context
+        nxt = fidx + 1
+        sw = (n_rem <= 0) & (nxt < counts)
+        fidx = torch.where(sw, nxt, fidx)
+        state = torch.where(sw, q["state0"][fidx, lanes], state)
+        cursor = torch.where(sw, q["woff"][fidx, lanes] * 2, cursor)
+        p1 = torch.where(sw, 0, p1)
+        p2 = torch.where(sw, 0, p2)
+        n_rem = torch.where(sw, q["n_lit"][fidx, lanes], n_rem)
+        lcmap = q["lcmap"][fidx, lanes]
+        spd = q["spd"][fidx, lanes]
+        swb = sw[:, None, None]
+        committed = torch.where(swb, committed0, committed)
+        weights = torch.where(swb, weights0, weights)
+        pend = tuple(torch.where(sw.view(-1, *[1] * (p.ndim - 1)), 0, p)
+                     for p in pend)
+
+        # ---- premix the frozen cm/nib plane pairs once per chunk
+        g = committed[:, perm]                               # [B, 384, 16]
+        nw_lo = (weights[:, 0, 2] & 0xFFFF)[:, None]
+        nw_hi = (weights[:, 1, 2] & 0xFFFF)[:, None]
+        mix_hi = cdf16.average(g[:, 64:128], g[:, 0:64], nw_hi)
+        mix_lo = cdf16.average(g[:, 256:384], g[:, 128:256], nw_lo)
+        kmodel = torch.cat([mix_hi, mix_lo], dim=1).to(torch.int16)
+        sc_in = torch.stack([state, p1, p2, n_rem, cursor])
+        bytes_c, ctx_c, sc_out = chunk_fn(kmodel, words, lcmap, luts, sc_in, s)
+        out[:, step * s:(step + 1) * s] = bytes_c
+
+        # ---- per-class count histograms (integer index_add_)
+        byte = bytes_c.long()
+        hi, lo = byte >> 4, byte & 15
+        ctx = ctx_c.long()
+        active = byte_iota[None, :] < n_rem[:, None]
+        cnt_hi, cnt_lo = lit_model.count_hists(ctx, hi, lo, active)
+
+        # ---- mixer adjustments: count histograms against adj tables
+        wadj_rows = []
+        for cnt, mix, cm, nib in ((cnt_hi, mix_hi, g[:, 64:128], g[:, 0:64]),
+                                  (cnt_lo, mix_lo, g[:, 256:384],
+                                   g[:, 128:256])):
+            wadj_rows.append(torch.stack(
+                [torch.sum(cnt * a, dim=(1, 2), dtype=torch.int32)
+                 for a in _adj_tables(mix, cm, nib)], dim=-1))
+        wadj = torch.stack([wadj_rows[1], wadj_rows[0]], dim=1)   # [B,2,2]
+
+        new_pend = lit_model.chunk_pend(cnt_hi, cnt_lo, spd, wadj, perm2)
+        # ---- commit the previous chunk's updates (lag 1)
+        committed, weights = lit_model.apply_pend(committed, weights, pend,
+                                                  n_pass)
+        pend = new_pend
+        state = sc_out[0]
+        cursor = cursor + sc_out[3]
+        p1, p2 = sc_out[1], sc_out[2]
+        n_rem = n_rem - s
+    carry = dict(zip(CARRY, (state, cursor, p1, p2, n_rem, fidx, committed,
+                             weights) + tuple(pend)))
+    return out, {k: v.to(torch.int32) for k, v in carry.items()}
 
 
 def lit_decode_chunk_plain(model, words, lcmap, luts, sc_in, s_bytes: int):
-    """The same function in plain PyTorch: a loop over the chunk's bytes,
-    vector ops over the lanes (gathers on the planes and word rows)."""
+    """One chunk for every lane, the function the TPU kernel computed:
+    a loop over the chunk's bytes, vector ops over the lanes (gathers on
+    the planes and word rows).  model int16[B,192,16] premixed planes,
+    words int32[B,W] packed renorm words (two u16 per int32, little word
+    first), lcmap int32[B,64], luts int32[512], sc_in int32[5,B] (state,
+    p1, p2, n_rem, halfword cursor) -> bytes uint8[B,s], ctx uint8[B,s],
+    sc_out int32[4,B] (state, p1, p2, pulls)."""
     b = model.shape[0]
     dev = model.device
     lanes = torch.arange(b, device=dev)

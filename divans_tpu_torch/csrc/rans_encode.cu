@@ -1,4 +1,4 @@
-// Wide rANS (rans32) reverse encode, one lane per thread, for Hopper
+// Wide rANS (rans32) reverse encode, one warp per lane, for Hopper
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernel divans_tpu/ans/pallas_kernels.py:57
@@ -13,26 +13,49 @@
 // the reference's: the shift and the update wrap (done in uint32 and
 // cast back), the division is floor division.
 //
-// Design.  One thread per lane walks its symbols backward with the
-// state in a register; the layout is the port's natural [B, N], lanes
-// first, so a warp's loads are strided by N (each thread streams its own
-// row backward; a cache line serves 32 consecutive steps of one lane).
-// The TPU kernel's f32-reciprocal division was a Mosaic workaround;
-// here it is an integer division.
+// Design.  One warp per lane, which walks the lane's symbols backward in
+// tiles of 256 steps; only the state update is serial, so everything
+// else is taken off the chain and done by the whole warp:
+//   * loads: the warp copies the next tile's starts and freqs into a
+//     double-buffered ring in shared memory with cp.async (16 B a thread
+//     where the row is 16-byte aligned, else 4 B), issued before the
+//     current tile is coded, so the copy runs under the chain;
+//   * division: for each step of the tile the warp computes, in
+//     parallel, max(freq, 1), the renorm bound freq << 16 and the
+//     reciprocal floor((2^32 - 1) / freq).  The chain then does a
+//     compare, a shift, q = umulhi(x, recip) with at most one
+//     correction, and the update, from one 16-byte shared-memory load.
+//     For 0 <= x < 2^32 and 1 <= freq < 2^32 the estimate is floor(x /
+//     freq) or one less (x * recip / 2^32 lies within x / 2^32 < 1 of
+//     x / freq), so the one correction makes it exact; a negative state,
+//     which valid inputs never reach, takes the exact signed division;
+//   * stores: the chain writes each step's word and flag into shared
+//     memory, and the warp stores the tile to the rows with 16-byte
+//     stores where the row is aligned.  Columns past the count keep the
+//     start state: the warp fills them without the chain.
 //
-// What bounds it.  The serial chain per symbol: compare, shift, one
-// integer division (a ~25-instruction sequence) and the update, ~40
-// dependent instructions a symbol, for every lane at once; on paper the
-// bytes (8 B in, 3 B out a symbol) bound it, far below the chain.  With
-// one batch's lanes (tens) in flight the card runs tens of threads: a
-// symbol-major layout, lanes from several batches per launch, or
-// interleaved states per lane are later work.
+// What bounds it.  The serial chain per symbol, now ~8 dependent integer
+// instructions (compare, select, multiply-high, multiply, compare,
+// select, shift-add) and one shared-memory load that does not depend on
+// the state; on paper the bytes (8 B in, 3 B out a symbol) bound it far
+// below that.  A batch has tens of lanes, so tens of warps run on the
+// card; lanes from several batches per launch, or interleaved states per
+// lane (a change of the wire format), are later work.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 32;
+constexpr int kWarp = 32;
+constexpr int kTile = 256;   // steps a tile (a multiple of 16)
+
+// The state-free part of one step, computed by the warp ahead of the chain.
+struct __align__(16) Step {
+  int32_t freq;     // max(freq, 1)
+  int32_t bound;    // freq << 16, wrapped to int32
+  uint32_t recip;   // floor((2^32 - 1) / freq)
+  int32_t start;
+};
 
 // floor(a / b) for b >= 1 (the reference's `//`).
 __device__ __forceinline__ int floor_div(int a, int b) {
@@ -41,45 +64,144 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return q;
 }
 
-__global__ void __launch_bounds__(kBlock) rans_encode_kernel(
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait for all but the newest group of this thread's copies
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// The warp starts copying n ints of a row into shared memory.  With vec,
+// in 16 B pieces: the row and src are 16-byte aligned and the row's
+// length is a multiple of 4, so a last piece past n stays in the row.
+__device__ __forceinline__ void fetch(int32_t* dst, const int32_t* src, int n,
+                                      bool vec, int lane) {
+  if (vec) {
+    for (int i = 4 * lane; i < n; i += 4 * kWarp) cp_async16(dst + i, src + i);
+  } else {
+    for (int i = lane; i < n; i += kWarp) cp_async4(dst + i, src + i);
+  }
+}
+
+// The warp stores n staged elements to dst, 16 B a thread where dst is
+// 16-byte aligned (src, in shared memory, always is).
+template <typename E>
+__device__ __forceinline__ void store(E* dst, const E* src, int n, int lane) {
+  constexpr int kVec = 16 / sizeof(E);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int nv = n / kVec;
+    for (int i = lane; i < nv; i += kWarp) {
+      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+    }
+    done = nv * kVec;
+  }
+  for (int i = done + lane; i < n; i += kWarp) dst[i] = src[i];
+}
+
+__global__ void __launch_bounds__(kWarp) rans_encode_kernel(
     const int32_t* __restrict__ starts, const int32_t* __restrict__ freqs,
     const int32_t* __restrict__ counts, int16_t* __restrict__ words,
     int8_t* __restrict__ flags, int32_t* __restrict__ states, int B, int N) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= B) return;
+  __shared__ __align__(16) int32_t raw[2][2][kTile];   // [ring][starts, freqs]
+  __shared__ Step prep[kTile];
+  __shared__ __align__(16) int16_t wbuf[kTile];
+  __shared__ __align__(16) int8_t fbuf[kTile];
+  const int l = blockIdx.x;
+  const int lane = threadIdx.x;
   const int32_t* st = starts + (size_t)l * N;
   const int32_t* fr = freqs + (size_t)l * N;
   int16_t* wo = words + (size_t)l * N;
   int8_t* fo = flags + (size_t)l * N;
-  const int count = counts[l];
-  int32_t state = 1 << 15;
-  for (int t = N - 1; t >= 0; --t) {
-    wo[t] = (int16_t)(state & 0xFFFF);
-    if (t >= count) {
-      fo[t] = 0;
-      continue;
-    }
-    const int freq = max(__ldg(fr + t), 1);
-    const bool flag = state >= (int32_t)((uint32_t)freq << 16);
-    fo[t] = flag ? 1 : 0;
-    if (flag) state >>= 16;
-    const int q = floor_div(state, freq);
-    state = (int32_t)(((uint32_t)q << 15) + (uint32_t)(state - q * freq) +
-                      (uint32_t)__ldg(st + t));
+  const int c = min(max(counts[l], 0), N);
+  const bool vec = N % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(starts) |
+                     reinterpret_cast<uintptr_t>(freqs)) & 15) == 0;
+  // past the count the state stays 2^15: word 0x8000, no flag
+  for (int t = c + lane; t < N; t += kWarp) {
+    wo[t] = (int16_t)0x8000;
+    fo[t] = 0;
   }
-  states[l] = state;
+  const int n_tiles = (c + kTile - 1) / kTile;
+  if (n_tiles > 0) {
+    const int lo = (n_tiles - 1) * kTile;
+    fetch(raw[0][0], st + lo, c - lo, vec, lane);
+    fetch(raw[0][1], fr + lo, c - lo, vec, lane);
+    cp_async_commit();
+  }
+  int32_t state = 1 << 15;   // meaningful in lane 0, which runs the chain
+  for (int j = n_tiles - 1; j >= 0; --j) {
+    const int ring = (n_tiles - 1 - j) & 1;
+    const int lo = j * kTile;
+    const int n = min(kTile, c - lo);
+    if (j > 0) {   // the next tile down is whole
+      fetch(raw[ring ^ 1][0], st + lo - kTile, kTile, vec, lane);
+      fetch(raw[ring ^ 1][1], fr + lo - kTile, kTile, vec, lane);
+    }
+    cp_async_commit();   // an empty group on the last tile keeps the count
+    cp_async_wait();
+    __syncwarp();
+    for (int i = lane; i < n; i += kWarp) {
+      const int32_t f = max(raw[ring][1][i], 1);
+      prep[i] = {f, (int32_t)((uint32_t)f << 16), 0xFFFFFFFFu / (uint32_t)f,
+                 raw[ring][0][i]};
+    }
+    __syncwarp();
+    if (lane == 0) {
+#pragma unroll 4
+      for (int i = n - 1; i >= 0; --i) {
+        const Step p = prep[i];
+        wbuf[i] = (int16_t)(state & 0xFFFF);
+        const bool flag = state >= p.bound;
+        fbuf[i] = flag ? 1 : 0;
+        const int32_t x = flag ? state >> 16 : state;
+        uint32_t q, r;
+        if (x >= 0) {
+          q = __umulhi((uint32_t)x, p.recip);
+          r = (uint32_t)x - q * (uint32_t)p.freq;
+          if (r >= (uint32_t)p.freq) {
+            ++q;
+            r -= (uint32_t)p.freq;
+          }
+        } else {
+          const int32_t qs = floor_div(x, p.freq);
+          q = (uint32_t)qs;
+          r = (uint32_t)(x - qs * p.freq);
+        }
+        state = (int32_t)((q << 15) + r + (uint32_t)p.start);
+      }
+    }
+    __syncwarp();
+    store(wo + lo, wbuf, n, lane);
+    store(fo + lo, fbuf, n, lane);
+    __syncwarp();
+  }
+  if (lane == 0) states[l] = state;
 }
 
 }  // namespace
 
 // starts, freqs int32[B, N], counts int32[B] -> words int16[B, N],
-// flags int8[B, N], states int32[B].  Launches on `stream` and returns
-// cudaGetLastError().
+// flags int8[B, N], states int32[B].  One warp (a block) per lane.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int dtpu_rans_encode(const void* starts, const void* freqs,
                                 const void* counts, void* words, void* flags,
                                 void* states, int B, int N, void* stream) {
-  const dim3 grid((B + kBlock - 1) / kBlock);
-  rans_encode_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+  rans_encode_kernel<<<B, kWarp, 0, (cudaStream_t)stream>>>(
       (const int32_t*)starts, (const int32_t*)freqs, (const int32_t*)counts,
       (int16_t*)words, (int8_t*)flags, (int32_t*)states, B, N);
   return (int)cudaGetLastError();

@@ -1,11 +1,12 @@
 """The literal-decode kernel module and the lane decode of the port against
-the JAX package: the plain version of the kernel against the Pallas
-kernel (interpret mode) on one real mid-stream chunk, the whole lane
-decode against `_decode_lit_scan_q(interpret=True)` and against the
-numpy oracle `decode_literals_np`, and the lane packing.  All bit-exact
-(integer codec: tolerance zero).  The CUDA kernel itself is held
-against the plain version on the card by chip_smoke.py (the card's
-machine has no JAX, so these tests run here only)."""
+the JAX package: the plain chunk decode against the Pallas kernel
+(interpret mode) on one real mid-stream chunk, the plain group decode's
+bytes and final carry against `_decode_lit_scan_q(interpret=True)`, the
+whole lane decode against that scan and against the numpy oracle
+`decode_literals_np`, and the lane packing.  All bit-exact (integer
+codec: tolerance zero).  The CUDA kernel itself (one launch a group) is
+held against the plain group decode on the card by chip_smoke.py (the
+card's machine has no JAX, so these tests run here only)."""
 import glob
 import os
 
@@ -22,7 +23,7 @@ from divans_tpu.codec.layout import PROFILES as JPROFILES
 from divans_tpu.container import format as jfmt
 from divans_tpu.options import DivansOptions as JOptions
 
-from divans_tpu_torch.codec import decode, lit_decode
+from divans_tpu_torch.codec import decode, lit_decode, lit_model
 from divans_tpu_torch.codec.deferred import SUB_LIT, lit_subs_split
 from divans_tpu_torch.codec.layout import ModelLayout, PROFILES
 
@@ -124,7 +125,7 @@ def _capture_chunk(step: int, chunk: int):
     got = []
 
     def spy(*args):
-        res = lit_decode.lit_decode_chunk(*args)
+        res = lit_decode.lit_decode_chunk_plain(*args)
         got.append((args, res))
         return res
 
@@ -133,9 +134,8 @@ def _capture_chunk(step: int, chunk: int):
 
 
 def test_plain_chunk_matches_pallas_kernel():
-    """lit_decode_chunk on CPU tensors (its plain version) against the
-    Pallas kernel it replaces, in interpret mode, on identical inputs:
-    bytes, ctx, state, p1, p2 and pulls."""
+    """lit_decode_chunk_plain against the Pallas kernel in interpret
+    mode, on identical inputs: bytes, ctx, state, p1, p2 and pulls."""
     chunk = 64
     s = chunk // 2
     (model, words, lcmap, luts, sc_in, _s), (b_out, c_out, sc_out) = \
@@ -165,6 +165,72 @@ def test_plain_chunk_matches_pallas_kernel():
 
 
 # ------------------------------------------------------ whole lane decode
+
+def test_group_carry_matches_jax_scan():
+    """decode_group on CPU tensors (its plain version): the bytes and the
+    final carry (committed model, weights, pend, state, cursor, p1, p2,
+    n_rem, queue position) against the reference's scan with
+    return_carry=True (Pallas kernel in interpret mode, XLA commit), its
+    [B, 16, R] layout transposed.  Deep queues (two lanes), so lanes
+    switch streams and one runs past its last stream."""
+    chunk = 64
+    streams, n_lits, lcmaps, speeds = _streams(
+        _text(7000, skip=60000) + _binary(3000, 3), 1 << 12, chunk)
+    q, n_steps, _placement = decode.pack_lane_queues(
+        streams, n_lits, lcmaps, speeds, chunk, spread=2)
+    assert q.counts.max() >= 2
+    j_arrays, _j_steps, _ = jpd.pack_lane_queues(
+        streams, n_lits, lcmaps, speeds, chunk, spread=2)
+    tensors, perm, n_pass = decode.group_inputs(q, chunk, LAYOUT, "cpu")
+    out, carry = lit_decode.decode_group(tensors, perm, n_pass, n_steps,
+                                         chunk // 2)
+    j_perm, offs = jpd.kernel_perm(JLAYOUT)
+    ref, j_carry = jpd._decode_lit_scan_q(
+        *[jnp.asarray(a) for a in j_arrays], jnp.asarray(j_perm),
+        lit_model.R_LIT, chunk, n_steps, offs, True,
+        n_renorm=jpd._renorm_bound_q(j_arrays[6], chunk // 2),
+        return_carry=True)
+    (committed, weights, pend, state, cursor, p1, p2, n_rem, fidx,
+     _lcmap, _spd) = [jax.tree_util.tree_map(np.asarray, c) for c in j_carry]
+    assert np.array_equal(out.numpy(), np.asarray(ref).astype(np.uint8))
+    want = {"state": state, "cursor": cursor, "p1": p1, "p2": p2,
+            "n_rem": n_rem, "fidx": fidx,
+            "committed": committed.transpose(0, 2, 1), "weights": weights,
+            "add": pend["add"].transpose(0, 2, 1),
+            "limsum": pend["limsum"], "cnt": pend["cnt"],
+            "wadj": pend["wadj"]}
+    assert set(carry) == set(want) == set(lit_decode.CARRY)
+    for name, ref_val in want.items():
+        assert carry[name].dtype == torch.int32, name
+        assert np.array_equal(carry[name].numpy(), ref_val), name
+    # the commit moved the models away from CDF_INIT and left a pend
+    assert (carry["committed"].numpy() != committed[:1, :1, 0]).any()
+    assert carry["cnt"].numpy().any() or (n_rem > 0).any()
+
+
+def test_decode_lanes_on_cpu_is_the_plain_group():
+    """decode_lanes on the CPU (no chunk_fn) is one decode_group call,
+    i.e. its plain version: equal bytes, and a spy chunk_fn sees every
+    chunk of the group."""
+    chunk = 64
+    streams, n_lits, lcmaps, speeds = _streams(_text(3000, skip=9000),
+                                               1 << 12, chunk)
+    q, n_steps, _placement = decode.pack_lane_queues(
+        streams, n_lits, lcmaps, speeds, chunk, lanes=4)
+    calls = []
+
+    def spy(*args):
+        calls.append(1)
+        return lit_decode.lit_decode_chunk_plain(*args)
+
+    out = decode.decode_lanes(q, n_steps, chunk, LAYOUT, "cpu")
+    spied = decode.decode_lanes(q, n_steps, chunk, LAYOUT, "cpu",
+                                chunk_fn=spy)
+    tensors, perm, n_pass = decode.group_inputs(q, chunk, LAYOUT, "cpu")
+    plain, _carry = lit_decode.decode_group_plain(tensors, perm, n_pass,
+                                                  n_steps, chunk // 2)
+    assert torch.equal(out, plain) and torch.equal(spied, plain)
+    assert len(calls) == n_steps
 
 def test_lane_decode_matches_jax_scan():
     """decode_lanes (plain kernel + torch commit) against the reference's

@@ -67,8 +67,9 @@ def _meta(shape, dtype):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: lit_decode.lit_decode_chunk(
-        *[_meta((1, 192, 16), torch.int16)] * 5, 128),
+    lambda: lit_decode.decode_group(
+        {"words": _meta((1, 64), torch.int32)}, _meta((384,), torch.int32),
+        1, 4, 128),
     lambda: lit_pass.lit_pass(_meta((1, 128), torch.uint16),
                               _meta((1, 6), torch.int32),
                               _meta((1,), torch.int32), 256),
