@@ -194,17 +194,15 @@ __device__ __forceinline__ int warp_sum(int v) {
 }
 
 // Decode one nibble against premixed plane q; int32 wrap semantics.
+// `next` holds the renorm word at halfword h of the chunk's window,
+// loaded one renorm ahead, so a renorm does not wait on shared memory.
 __device__ __forceinline__ int decode_nibble(const int16_t* kmodel,
                                              const int* grid, int q,
-                                             const int* window, int base,
-                                             int cursor, int32_t& state,
-                                             int& pulls) {
-  const int h = cursor + pulls;
-  const int32_t packed = window[(h >> 1) - base];
-  const uint32_t word = ((uint32_t)packed >> ((h & 1) * 16)) & 0xFFFFu;
+                                             const uint16_t* w16, int& h,
+                                             uint32_t& next, int32_t& state) {
   if (state < 32768) {
-    state = (int32_t)(((uint32_t)state << 16) | word);
-    ++pulls;
+    state = (int32_t)(((uint32_t)state << 16) | next);
+    next = w16[++h];
   }
   const int4* p4 = reinterpret_cast<const int4*>(kmodel + q * 16);
   const int4 a = p4[0];
@@ -218,9 +216,14 @@ __device__ __forceinline__ int decode_nibble(const int16_t* kmodel,
   }
   const int slot = state & 0x7FFF;
   const int resc = (slot * cdf[15]) >> 15;
-  int sym = 0;
+  int le[15];
 #pragma unroll
-  for (int i = 0; i < 15; ++i) sym += (cdf[i] <= resc);
+  for (int i = 0; i < 15; ++i) le[i] = cdf[i] <= resc;
+  // the count as a tree of adds (depth 4, not a chain of 15)
+  const int sym = (((le[0] + le[1]) + (le[2] + le[3])) +
+                   ((le[4] + le[5]) + (le[6] + le[7]))) +
+                  (((le[8] + le[9]) + (le[10] + le[11])) +
+                   ((le[12] + le[13]) + le[14]));
   const int* g = grid + q * 16;
   const int start = (sym > 0 ? g[sym - 1] : 0) + 1;
   const int freq = g[sym] - start;
@@ -252,8 +255,8 @@ __global__ void __launch_bounds__(kThreads) lit_decode_group_kernel(
   int* wadj = weights + 6;                        // [2][which][cm, nib]
   int* spd = wadj + 8;                            // [6]
   int* sc = spd + 6;                              // kScalars
-  int* window = sc + kScalars + 1;                // [s + 1] renorm words
-  uint8_t* outb = (uint8_t*)(window + s + 1);     // [s] bytes, then [s] ctx
+  int* window = sc + kScalars + 1;                // [s + 2] renorm words
+  uint8_t* outb = (uint8_t*)(window + s + 2);     // [s] bytes, then [s] ctx
   uint8_t* outc = outb + s;
 
   const int l = blockIdx.x;
@@ -343,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) lit_decode_group_kernel(
         kmodel[q * 16 + i] = (int16_t)mix[i];
       }
     }
-    for (int j = tid; j <= s; j += kThreads) {
+    for (int j = tid; j < s + 2; j += kThreads) {
       window[j] = wrow[min(base + j, W - 1)];
     }
     for (int i = tid; i < kHistRows * 16; i += kThreads) hist_new[i] = 0;
@@ -354,21 +357,25 @@ __global__ void __launch_bounds__(kThreads) lit_decode_group_kernel(
     if (tid == 0) {
       int32_t state = sc[kState];
       int p1 = sc[kP1], p2 = sc[kP2];
-      int pulls = 0;
+      // halfword h of the window is word cursor + pulls of the lane's row
+      const uint16_t* w16 = reinterpret_cast<const uint16_t*>(window);
+      const int h0 = cursor & 1;
+      int h = h0;
+      uint32_t next = w16[h];
       const int n_act = max(0, min(s, sc[kNRem]));
       for (int t = 0; t < n_act; ++t) {
         const int sel = luts[p1 & 255] | luts[256 + (p2 & 255)];
         const int ctx = lcmap[sel & 63] & 63;
-        const int hi = decode_nibble(kmodel, grid, ctx, window, base, cursor,
-                                     state, pulls);
+        const int hi = decode_nibble(kmodel, grid, ctx, w16, h, next, state);
         const int lo = decode_nibble(kmodel, grid, 64 + (ctx >> 3) * 16 + hi,
-                                     window, base, cursor, state, pulls);
+                                     w16, h, next, state);
         const int byte = (hi << 4) | lo;
         outb[t] = (uint8_t)byte;
         outc[t] = (uint8_t)ctx;
         p2 = p1;
         p1 = byte;
       }
+      const int pulls = h - h0;
       sc[kState] = state;
       sc[kP1] = p1;
       sc[kP2] = p2;
@@ -466,7 +473,7 @@ __global__ void __launch_bounds__(kThreads) lit_decode_group_kernel(
 static int smem_bytes(int s) {
   const int ints = kRows * 16 + 2 * kHistRows * 16 + kPlanes * 16 +
                    kPlanes * 8 + 512 + 64 + 384 + 6 + 8 + 6 + kScalars + 1 +
-                   (s + 1) + (2 * s + 3) / 4;
+                   (s + 2) + (2 * s + 3) / 4;
   return ints * (int)sizeof(int);
 }
 

@@ -6,7 +6,9 @@ compaction and wire assembly against compact_global, assemble_global
 and assemble_lane_bytes.  Bit-exact throughout (tolerance zero).
 Streams: real (start, freq) pairs from the port's literal model pass and
 numpy-seeded random ones, with counts 0, 1, 511, 512, 513 and 1500, and
-freq 0 in the padding (the kernel's max(freq, 1))."""
+freq 0 in the padding (the kernel's max(freq, 1)).  The kernel's
+magic-number division is emulated in numpy and checked against floor
+division."""
 import glob
 import os
 
@@ -149,6 +151,48 @@ def test_compaction_and_assembly_match_reference(kind):
     assert got == pk.assemble_lane_bytes(j_words, j_flags, j_states,
                                          lane_counts)
     assert all((g == b"") == (c == 0) for g, c in zip(got, lane_counts))
+
+
+def _magic_divide(x, d):
+    """csrc/rans_encode.cu's division on the chain, in numpy (uint64):
+    l = ceil(log2 d) and m = ceil(2^(31+l) / d), computed ahead of the
+    chain; q = umulhi(2x, m) >> l.  Returns (q, m)."""
+    lg = np.array([int(v - 1).bit_length() for v in d.reshape(-1)],
+                  np.uint64).reshape(d.shape)
+    m = ((np.uint64(1) << (np.uint64(31) + lg)) + d - np.uint64(1)) // d
+    q = (((x << np.uint64(1)) * m) >> np.uint64(32)) >> lg
+    return q, m
+
+
+@pytest.mark.parametrize("divisors", ["every_freq", "up_to_2^31"])
+def test_magic_division_is_floor_division(divisors):
+    """The kernel's division trick equals floor division for every
+    divisor it can see on valid streams (freq in [1, 2^15]) and a sample
+    up to 2^31 - 1, over dividends that include the extremes of the
+    state's range [0, 2^31) (0, 1, d - 1, d, d + 1, the largest multiple
+    of d and its neighbours, 2^31 - 1) and random ones; the magic number
+    fits 32 bits.  A negative state takes the kernel's exact signed
+    division instead."""
+    rng = np.random.default_rng(11)
+    top = 2**31 - 1
+    if divisors == "every_freq":
+        d = np.arange(1, 2**15 + 1, dtype=np.uint64)
+    else:
+        d = np.concatenate([rng.integers(2**15, top, 4000),
+                            [2**15 + 1, 2**16, 2**30, top - 1, top]]
+                           ).astype(np.uint64)
+    mult = (np.uint64(top) // d) * d
+    cols = [np.zeros_like(d), np.ones_like(d), d - 1, d, d + 1,
+            np.minimum(2 * d - 1, top), mult, mult - 1,
+            np.minimum(mult + 1, top), np.full_like(d, top),
+            np.full_like(d, top - 1), np.uint64(top) - d]
+    cols += [rng.integers(0, top, d.shape[0], dtype=np.int64
+                          ).astype(np.uint64) for _ in range(16)]
+    x = np.stack(cols, axis=1)
+    dd = np.ascontiguousarray(np.broadcast_to(d[:, None], x.shape))
+    q, m = _magic_divide(x, dd)
+    assert np.array_equal(q, x // dd)
+    assert int(m.max()) < 2**32
 
 
 def test_split_subs_cuts_sub_lit_lanes():
