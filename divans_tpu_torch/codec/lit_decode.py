@@ -46,8 +46,6 @@ _SIGNATURES = {"dtpu_lit_decode_group":
 # (add [L,385,16], limsum and cnt [L,385], wadj [L,2,2])
 SCALARS = ("state", "cursor", "p1", "p2", "n_rem", "fidx")
 CARRY = SCALARS + ("committed", "weights", "add", "limsum", "cnt", "wadj")
-QUEUE_FIELDS = ("words", "counts", "state0", "n_lit", "woff", "lcmap", "spd",
-                "luts")
 
 # kernel launches, counted where the wrapper launches (and nowhere else)
 LAUNCHES = 0
@@ -89,12 +87,12 @@ def decode_group(q: dict, perm, n_pass: int, n_steps: int, s_bytes: int):
                         ("limsum", (lanes, r)), ("cnt", (lanes, r)),
                         ("wadj", (lanes, 2, 2))):
         carry[name] = torch.empty(shape, dtype=i32, device=dev)
-    if lanes == 0:
-        return out, _unpack(carry)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.dtpu_lit_decode_group(
         q["words"].data_ptr(), w,
-        *[q[k].data_ptr() for k in QUEUE_FIELDS[1:]], perm.data_ptr(),
+        *[q[k].data_ptr() for k in ("counts", "state0", "n_lit", "woff",
+                                    "lcmap", "spd", "luts")],
+        perm.data_ptr(),
         lanes, n_steps, s_bytes, n_pass, out.data_ptr(),
         *[carry[k].data_ptr() for k in ("scalars", "committed", "weights",
                                         "add", "limsum", "cnt", "wadj")],
