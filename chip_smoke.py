@@ -133,16 +133,19 @@ LIT_PASS_OPS_PER_ENTRY = 4
 RANS_OPS_PER_SYMBOL = 40
 CMD_PASS_OPS_PER_STEP = 90
 CMD_PASS_OPS_PER_ENTRY = 6
-# the fused literal decode: ~40 a decoded nibble on the chain (word
-# select, 15 compares and adds, two grid loads, the state update, the
-# next context), ~110 a nibble for its adjustment and counts (four exact
-# floor divisions, the bit length, two clamps, the atomic), and per chunk
-# a lane decodes ~40 a premixed entry (the average, one exact floor
-# division for the grid) over 192 x 16 and ~6 a committed entry (the
-# add, the cumulative count, one renorm pass) over 385 x 16
-DECODE_OPS_PER_NIBBLE = 40
+# the literal decode, counted as the function needs it (not as the
+# kernel's rescaled grids spend it): ~90 a decoded nibble on the chain
+# (word select, 15 compares and adds, the two exact floor divisions of
+# the symbol's start and freq, the state update, the next context), ~110
+# a nibble for its adjustment and counts (four exact floor divisions,
+# the bit length, two clamps, the atomic), and per chunk a lane decodes
+# ~15 a premixed entry (the average alone: two loads, four products, two
+# shifts, two adds, a shift, the i16 wrap, the store) over 192 x 16 and
+# ~6 a committed entry (the add, the cumulative count, one renorm pass)
+# over 385 x 16
+DECODE_OPS_PER_NIBBLE = 90
 ADJ_OPS_PER_NIBBLE = 110
-PREMIX_OPS_PER_ENTRY = 40
+PREMIX_OPS_PER_ENTRY = 15
 COMMIT_OPS_PER_ENTRY = 6
 GENERIC_OPS_PER_STEP = 100
 GENERIC_OPS_PER_MIX_STEP = 150
@@ -330,6 +333,47 @@ def _rans_compare(st, fr, counts, tag: str, lanes: str, smi: str) -> dict:
     return e
 
 
+def _rans_edge_compare(device, tag: str, smi: str) -> None:
+    """The rANS encode, kernel against plain, on lanes outside the model
+    passes' contract, so that the producer's tile vote fails and the
+    exact signed chain runs: one step each with freq > 2^15, a negative
+    start, start + freq > 2^15; a start of 2^31 - 1 at the last step of
+    a tile, which leaves the state negative (x >= 1, freq 2^15 - 1) for
+    the valid tiles after it; random int32 pairs.  Beside them a valid
+    lane, freqs <= 0 (clamped to 1), freq 2^15 with start 0 (the bound
+    wraps), an empty lane and counts that end inside a tile.  Rows of N
+    = 1024 and 1021 (the 16-byte and the 4-byte copies).  Every word,
+    flag and state must be equal."""
+    gen = torch.Generator().manual_seed(5)
+    i32 = torch.int32
+    for n in (1024, 1021):
+        b = 9
+        fr = torch.randint(1, 2048, (b, n), generator=gen, dtype=i32)
+        st = torch.randint(0, 32768 - 2048, (b, n), generator=gen, dtype=i32)
+        counts = torch.full((b,), n, dtype=i32)
+        fr[1, 700] = 40000
+        st[2, 300] = -5
+        st[3, 500], fr[3, 500] = 32000, 1000
+        st[4, 512], fr[4, 512] = 2**31 - 1, 32767   # tile [512, 768)'s last
+        st[5] = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                              dtype=i32)
+        fr[5] = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                              dtype=i32)
+        fr[6, 100:110], fr[6, 900] = 0, -7
+        st[6, 400:420], fr[6, 400:420] = 0, 32768
+        counts[7], counts[8] = 0, 600
+        st, fr, counts = st.to(device), fr.to(device), counts.to(device)
+        w_p, f_p, s_p = rans_encode.encode_lanes_plain(st, fr, counts)
+        w_k, f_k, s_k = rans_encode.encode_lanes(st, fr, counts)
+        torch.cuda.synchronize()
+        err = _max_err([(w_k, w_p), (f_k, f_p), (s_k, s_p)])
+        assert err == 0, f"encode_lanes kernel differs from its plain " \
+            f"version outside the contract (N {n}) by {err}"
+    print(f"[{tag}] encode_lanes kernel == plain on every word, flag and "
+          f"state of {b} lanes outside the model passes' contract (the "
+          f"exact chain; N 1024 and 1021; max_abs_err 0) | {smi}")
+
+
 def _stats(**counts) -> dict:
     """encode.STATS with these counts, every other one 0."""
     return dict(dict.fromkeys(encode.STATS, 0), **counts)
@@ -358,6 +402,7 @@ def phase_encode_compare(corpus: bytes, device, smi: str) -> dict:
           f"{CHUNK}")
     lp, st, fr, n_nib = _lit_pass_compare(got, device, tag, smi)
     re_ = _rans_compare(st, fr, n_nib, tag, "lit lanes", smi)
+    _rans_edge_compare(device, tag, smi)
     return {"lit_pass": lp, "encode_lanes": re_}
 
 
@@ -481,7 +526,8 @@ def _group_work(queues, carry, n_steps: int, s: int):
     bytes, the scalars, the committed model and the pend written once.
     Operations: DECODE_OPS_PER_NIBBLE and ADJ_OPS_PER_NIBBLE for each
     decoded nibble, and for each chunk a lane decodes, the premix of 192
-    x 16 entries and the commit of 385 x 16."""
+    x 16 entries (the averages; the kernel's grid divisions are its own
+    choice, not counted) and the commit of 385 x 16."""
     n_lit = queues.n_lit.astype(np.int64)
     n_bytes_dec = int(n_lit.sum())
     lane_chunks = int(((n_lit + s - 1) // s).sum())

@@ -175,22 +175,17 @@ def group_inputs(queues: LaneQueues, chunk: int, layout, device):
 
 @torch.inference_mode()
 def decode_lanes(queues: LaneQueues, n_steps: int, chunk: int, layout,
-                 device, chunk_fn=None, timing: list | None = None):
+                 device, timing: list | None = None):
     """Run `n_steps` chunks over every lane; returns the decoded bytes,
     uint8[L, n_steps * chunk//2] on `device` (a stream placed at chunk
     offset c starts at column c * chunk//2).
 
     The group is one lit_decode.decode_group call: one kernel launch on
-    the card, the plain chunk loop on the CPU.  chunk_fn, for tests on
-    the CPU, runs the plain loop with that function of
-    lit_decode_chunk_plain's signature in place of it.  With `timing`
-    (on the card), the group appends ((CUDA events before and after the
-    launch), the host seconds spent issuing it)."""
+    the card, the plain chunk loop on the CPU.  With `timing` (on the
+    card), the group appends ((CUDA events before and after the launch),
+    the host seconds spent issuing it)."""
     q, perm, n_pass = group_inputs(queues, chunk, layout, device)
     s = chunk // 2
-    if chunk_fn is not None:
-        return lit_decode.decode_group_plain(q, perm, n_pass, n_steps, s,
-                                             chunk_fn)[0]
     if timing is not None:
         t_host = time.perf_counter()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]

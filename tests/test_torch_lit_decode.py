@@ -129,7 +129,9 @@ def _capture_chunk(step: int, chunk: int):
         got.append((args, res))
         return res
 
-    decode.decode_lanes(q, step + 1, chunk, LAYOUT, "cpu", chunk_fn=spy)
+    tensors, perm, n_pass = decode.group_inputs(q, chunk, LAYOUT, "cpu")
+    lit_decode.decode_group_plain(tensors, perm, n_pass, step + 1,
+                                  chunk // 2, chunk_fn=spy)
     return got[step]
 
 
@@ -209,9 +211,9 @@ def test_group_carry_matches_jax_scan():
 
 
 def test_decode_lanes_on_cpu_is_the_plain_group():
-    """decode_lanes on the CPU (no chunk_fn) is one decode_group call,
-    i.e. its plain version: equal bytes, and a spy chunk_fn sees every
-    chunk of the group."""
+    """decode_lanes on the CPU is one decode_group call, i.e. its plain
+    version: equal bytes, and a spy chunk_fn of the plain version sees
+    every chunk of the group."""
     chunk = 64
     streams, n_lits, lcmaps, speeds = _streams(_text(3000, skip=9000),
                                                1 << 12, chunk)
@@ -224,13 +226,14 @@ def test_decode_lanes_on_cpu_is_the_plain_group():
         return lit_decode.lit_decode_chunk_plain(*args)
 
     out = decode.decode_lanes(q, n_steps, chunk, LAYOUT, "cpu")
-    spied = decode.decode_lanes(q, n_steps, chunk, LAYOUT, "cpu",
-                                chunk_fn=spy)
     tensors, perm, n_pass = decode.group_inputs(q, chunk, LAYOUT, "cpu")
     plain, _carry = lit_decode.decode_group_plain(tensors, perm, n_pass,
                                                   n_steps, chunk // 2)
+    spied, _carry = lit_decode.decode_group_plain(
+        tensors, perm, n_pass, n_steps, chunk // 2, chunk_fn=spy)
     assert torch.equal(out, plain) and torch.equal(spied, plain)
     assert len(calls) == n_steps
+
 
 def test_lane_decode_matches_jax_scan():
     """decode_lanes (plain kernel + torch commit) against the reference's
