@@ -40,6 +40,10 @@ Phases, each printing its line; any failure raises and exits non-zero:
      path's first batch, packed its way (all 16 lanes live): the cmd
      model pass and the rANS encode on the cmd lanes, the literal model
      pass and the rANS encode on the lit lanes, compared as in phase 4;
+     the cmd pass also on edge lanes (cmd_edge_lanes: commits that leave
+     entry 15 at or above 0x8000 with lim above it, rows at the 24-pass
+     cap, all 256 rows) at s 16, 64 and 256, and its bound by the rows
+     each chunk counted beside the old count of R x 16 entries a chunk;
  10. quality-11 encode main path (the uniform device lanes): after one
      warm encode, divans_tpu_torch.compress three times; the container
      must equal the reference bytes, the cmd pass, lit pass and rANS
@@ -55,10 +59,14 @@ Phases, each printing its line; any failure raises and exits non-zero:
      corpus, whose literals the generic deferred pass codes: the
      host-only reference; on the first batch's generic literal lanes
      (built by encode.batch_jobs) that pass, kernel against plain, then
-     the rANS encode on its output; one warm and three timed encodes
-     (each equal to the reference, launching the generic pass, no
-     frame's literals elsewhere); one event-timed encode; one round
-     trip (the decode of this profile runs on the host);
+     the rANS encode on its output; the generic pass also on edge lanes
+     (generic_edge_lanes: 2s rows a chunk, a row hit by every step, the
+     renorm cap, the weight clamps) at s 16, 256 and 1024; one warm and
+     three timed encodes (each equal to the reference, launching the
+     generic pass, no frame's literals elsewhere); one event-timed
+     encode under torch.profiler, whose generic-pass stage is split into
+     the kernel's own device time and the card's wait; one round trip
+     (the decode of this profile runs on the host);
  14. the stride profile (the CLI's -nocm: no context map, no mixing) on
      the first 16 MiB: the reference; on the first batch the generic
      pass against its plain version, then the rANS encode on its
@@ -77,6 +85,7 @@ comparison on that path's inputs), and as the last line {"ok": true,
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import hashlib
 import json
@@ -120,8 +129,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # rows x 16 entries); the rANS encode ~40 a symbol (a compare, a shift,
 # one floor division, the update, the loads and stores); the cmd model
 # pass ~90 a step (three row-entry loads, two exact floor divisions, the
-# histogram atomic, the stores) and ~6 a model entry in each chunk's
-# commit (R rows x 16 entries; renorm passes not counted); the generic
+# histogram atomic, the stores), ~6 a model entry of each row a chunk
+# counted, in the commit that follows it (renorm passes not counted), and
+# one comparison for each row it did not count; the generic
 # deferred pass ~100 a step (three row-entry loads, two exact floor
 # divisions, up to three atomics and the stores), ~150 more a mixing step
 # (three more loads, three averages at one entry, three more divisions,
@@ -453,16 +463,26 @@ def phase_encode_main(corpus: bytes, ref: bytes, smi: str) -> dict:
     return launches
 
 
-def _timed_encode(corpus: bytes, ref: bytes, opts, tag: str, smi: str):
+def _timed_encode(corpus: bytes, ref: bytes, opts, tag: str, smi: str,
+                  split: tuple[str, str] | None = None):
     """One more encode with CUDA events around each batch's device
-    stages; prints their device time and the issuing thread's wait."""
+    stages; prints their device time and the issuing thread's wait.
+    `split` = (stage, kernel symbol): the encode runs under
+    torch.profiler (CUDA activities), and the stage's time between
+    events is split into the kernel's own device time and the rest, the
+    card waiting (for the issuing thread, allocations, the launch)."""
     blocks = [corpus[o:o + MB_SIZE] for o in range(0, len(corpus), MB_SIZE)]
     timing: list = []
-    t0 = time.perf_counter()
-    frames = encode.compress_frames(blocks, opts, _layout(opts), CHUNK,
-                                    torch.device("cuda"), timing=timing)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prof = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA], acc_events=True)
+        if split is not None else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        frames = encode.compress_frames(blocks, opts, _layout(opts), CHUNK,
+                                        torch.device("cuda"), timing=timing)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     assert [(f.cmd, f.lit) for f in frames] == \
         [(f.cmd, f.lit) for f in fmt.deserialize(ref)[2]]
     stage_ms: dict = {}
@@ -474,6 +494,27 @@ def _timed_encode(corpus: bytes, ref: bytes, opts, tag: str, smi: str):
     print(f"[{tag}] timed encode ({len(timing)} batches, {wall:.3f} s "
           f"wall): {stages} (device timeline); the issuing thread waited "
           f"{wait_s:.3f} s for the host stages | {smi}")
+    if split is not None:
+        stage, symbol = split
+        kernel_us, launches = 0.0, 0
+        for ev in prof.key_averages():
+            if symbol in ev.key:
+                kernel_us += getattr(ev, "device_time_total",
+                                     getattr(ev, "cuda_time_total", 0.0))
+                launches += ev.count
+        total = stage_ms[stage]
+        if kernel_us > 0:
+            kernel = kernel_us / 1e3
+            print(f"[{tag}] {stage} {total:.3f} ms between events (traced "
+                  f"encode, {len(timing)} batches): kernel {kernel:.3f} ms "
+                  f"on the device ({launches} launches, "
+                  f"{kernel / max(launches, 1):.4f} ms each, torch.profiler)"
+                  f", the card waiting {total - kernel:.3f} ms "
+                  f"({(total - kernel) / total:.1%}) | {smi}")
+        else:
+            print(f"[{tag}] {stage} {total:.3f} ms between events: kernel "
+                  f"device time not measured (the profiler saw none) | "
+                  f"{smi}")
     return stage_ms
 
 
@@ -670,11 +711,38 @@ def phase_q11_compare(corpus16: bytes, device, smi: str) -> dict:
     tag = "q11-compare"
     print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B")
     cmd, st_k, fr_k, n_steps = _cmd_pass_compare(got, device, tag, smi)
+    _cmd_edge_compare(device, tag, smi)
     re_cmd = _rans_compare(st_k, fr_k, n_steps, tag, "cmd lanes", smi)
     lp, st, fr, n_nib = _lit_pass_compare(got, device, tag, smi)
     re_lit = _rans_compare(st, fr, n_nib, tag, "lit lanes", smi)
     return {"cmd_pass": cmd, "lit_pass": lp,
             "encode_lanes": _sum_entries([re_cmd, re_lit])}
+
+
+def _cmd_work(packed, n_steps, r: int, s: int):
+    """(operations the cmd pass needs, the same counted the old way).
+    CMD_PASS_OPS_PER_STEP a step; for each chunk that a later chunk of
+    its lane commits, CMD_PASS_OPS_PER_ENTRY x 16 for each row it counted
+    and one comparison for each of the R rows it did not.  The old count
+    took R x 16 entries for every chunk of every lane."""
+    p = packed.cpu().numpy().astype(np.int64)
+    counted = other = lane_chunks = 0
+    for i, k in enumerate(n_steps.cpu().tolist()):
+        if k == 0:
+            continue
+        lane_chunks += -(-k // s)
+        q = p[i, :k]
+        chunk_of = np.arange(k) // s
+        sel = (((q >> 12) & 1) != 0) & (chunk_of < chunk_of[-1])
+        rows = np.unique(chunk_of[sel] * 256 + (q[sel] & 0xFF))
+        counted += int((rows % 256 < r).sum())
+        other += int(chunk_of[-1]) * r
+    other -= counted
+    n_sym = int(n_steps.sum())
+    return (CMD_PASS_OPS_PER_STEP * n_sym
+            + CMD_PASS_OPS_PER_ENTRY * 16 * counted + other,
+            CMD_PASS_OPS_PER_STEP * n_sym
+            + CMD_PASS_OPS_PER_ENTRY * r * 16 * lane_chunks)
 
 
 def _cmd_pass_compare(got, device, tag: str, smi: str):
@@ -700,13 +768,16 @@ def _cmd_pass_compare(got, device, tag: str, smi: str):
     assert err == 0, f"cmd_pass kernel differs from its plain version by {err}"
     ms = _cuda_ms(lambda: cmd_pass.cmd_pass(packed, inc, lim, n_steps, s), 20)
     n_sym = int(n_steps.sum())
-    lane_chunks = int(((n_steps + s - 1) // s).sum())
     # bytes: each step read once (2 B), the row speeds and counts, starts
-    # and freqs written once over [B, N]; operations per step and per
-    # commit
+    # and freqs written once over [B, N]
+    n_ops, dense_ops = _cmd_work(packed, n_steps, r, s)
     cmd = _entry(ms, plain_ms, 2 * n_sym + 8 * b * r + 4 * b + 8 * b * n,
-                 CMD_PASS_OPS_PER_STEP * n_sym
-                 + CMD_PASS_OPS_PER_ENTRY * r * 16 * lane_chunks, err)
+                 n_ops, err)
+    dense = _entry(ms, plain_ms, cmd["n_bytes"], dense_ops, err)
+    print(f"[{tag}] cmd_pass bound by the rows each chunk counted: "
+          f"{cmd['bound_ms']:.6f} ms ({n_ops} ops); as counted before, R x "
+          f"16 entries a chunk: {dense['bound_ms']:.6f} ms ({dense_ops} "
+          f"ops) | {smi}")
     print(f"[{tag}] cmd lanes: {b} lanes, {live} live, {n_sym} cmd steps, "
           f"N {n}, {r} rows, chunk {s} steps | cmd_pass kernel == plain on "
           f"starts, freqs (max_abs_err {err}): kernel {ms:.4f} ms, plain "
@@ -840,6 +911,118 @@ def _generic_compare(got, opts, device, tag: str, smi: str):
     return e, st_k, fr_k, counts
 
 
+def generic_edge_lanes(s: int, seed: int = 11):
+    """Lanes for kernel 5 at chunk s (numpy, seeded), with their row
+    count 4s + 8: every step mixing on distinct rows, so that each chunk
+    touches 2s rows (at s = 1024, more than the kernel's fold area holds
+    at once); one row and one cm row hit by every step; a random lane
+    with a ragged end; an empty lane; touched rows driven to the 24-pass
+    cap; the mixer weights driven to their clamps."""
+    rng = np.random.default_rng(seed + s)
+    r = 4 * s + 8
+
+    def lane(n, mix=1.0):
+        t = np.zeros((n, 10), np.int32)
+        t[:, 0] = rng.integers(0, 2 * s, n)
+        t[:, 1] = rng.integers(0, 16, n)
+        t[:, 2] = 1
+        t[:, 3] = rng.integers(1, 64, n)
+        t[:, 4] = rng.integers(64, 0x7000, n)
+        t[:, 5] = rng.random(n) < mix
+        t[:, 6] = rng.integers(0, 2, n)
+        t[:, 7] = rng.integers(2 * s, 4 * s, n)
+        t[:, 8] = rng.integers(1, 64, n)
+        t[:, 9] = rng.integers(64, 0x7000, n)
+        return t
+
+    distinct = lane(4 * s)
+    for c in range(4):
+        distinct[c * s:(c + 1) * s, 0] = rng.permutation(2 * s)[:s]
+        distinct[c * s:(c + 1) * s, 7] = 2 * s + rng.permutation(2 * s)[:s]
+    hot = lane(3 * s)
+    hot[:, 0], hot[:, 7] = 3, 4 * s + 5
+    capped = lane(5 * s, mix=0.0)
+    capped[:, 3], capped[:, 4] = 1 << 21, 64
+    capped[:, 0] = rng.integers(0, 4, capped.shape[0])
+    clamps = lane(4 * s)
+    clamps[:, 1], clamps[:, 3], clamps[:, 6], clamps[:, 7] = 3, 0, 1, 2 * s
+    clamps[:, 8], clamps[:, 9] = 64, 0x7000
+    return [distinct, hot, lane(3 * s + s // 2, mix=0.5),
+            np.zeros((0, 10), np.int32), capped, clamps], r
+
+
+def _generic_edge_compare(device, tag: str, smi: str) -> None:
+    """Kernel 5 against its plain version on generic_edge_lanes at s =
+    16, 256 and 1024: equal starts and freqs."""
+    for s in (16, 256, 1024):
+        lanes, r = generic_edge_lanes(s)
+        trace, counts = (torch.from_numpy(a).to(device)
+                         for a in encode.generic_inputs(lanes, s))
+        st_p, fr_p = deferred_pass.deferred_pass_plain(trace, counts, r, s)
+        st_k, fr_k = deferred_pass.deferred_pass(trace, counts, r, s)
+        torch.cuda.synchronize()
+        err = _max_err([(st_k, st_p), (fr_k, fr_p)])
+        assert err == 0, f"deferred_pass kernel differs from its plain " \
+            f"version on the edge lanes at s {s} by {err}"
+    assert deferred_pass.build().dtpu_deferred_pass_smem(1024) == \
+        deferred_pass.shared_bytes(1024)
+    print(f"[{tag}] deferred_pass kernel == plain on starts, freqs of "
+          f"{len(lanes)} edge lanes at s 16, 256 and 1024 (2s rows a chunk, "
+          f"a row hit by every step, the renorm cap, the weight clamps; "
+          f"max_abs_err 0; {deferred_pass.shared_bytes(1024)} B of shared "
+          f"memory at s 1024) | {smi}")
+
+
+def cmd_edge_lanes(s: int, seed: int = 12):
+    """Lanes for kernel 4 at chunk s over 256 rows (numpy, seeded):
+    (packed steps, inc, lim, step counts).  Two lanes hit a third of
+    their rows in turn (rows r with r % 3 == chunk % 3), so a row is
+    coded against only after two commits: one with lim 0xA000, whose
+    commits leave entry 15 at or above 0x8000 every few turns; one with
+    inc 2^22, whose rows hit the 24-pass cap and stay above 0x8000.
+    Beside them a renorm-heavy lane over all 256 rows, a ragged lane
+    with inactive steps and an empty lane."""
+    rng = np.random.default_rng(seed + s)
+    r = cmd_pass.MAX_ROWS
+    n = 30 * s
+
+    def steps(rows, act):
+        return (rows | rng.integers(0, 16, rows.shape[0]) << 8
+                | act.astype(np.int64) << 12).astype(np.uint16)
+
+    chunk_of = np.arange(n) // s
+    turns = 3 * rng.integers(0, 4, n) + chunk_of % 3
+    # 32768 // s: a row's commit adds ~8192 to its entry 15
+    lanes = [(steps(turns, np.ones(n, bool)), 32768 // s, 0xA000),
+             (steps(turns, np.ones(n, bool)), 1 << 22, 0x8000),
+             (steps(rng.integers(0, r, n), rng.random(n) < 0.8), 700, 4096),
+             (steps(rng.integers(0, r, n), rng.random(n) < 0.3), 24, 0x2000),
+             (steps(rng.integers(0, r, n), np.ones(n, bool)), 16, 0x2000)]
+    packed = np.stack([p for p, _i, _l in lanes])
+    inc = np.stack([np.full(r, i, np.int32) for _p, i, _l in lanes])
+    lim = np.stack([np.full(r, lm, np.int32) for _p, _i, lm in lanes])
+    counts = np.array([n, n, n, n - s - 7, 0], np.int32)
+    return packed, inc, lim, counts
+
+
+def _cmd_edge_compare(device, tag: str, smi: str) -> None:
+    """Kernel 4 against its plain version on cmd_edge_lanes at s = 16,
+    64 and 256: equal starts and freqs."""
+    for s in (16, cmd_chunk(CHUNK), 256):
+        packed, inc, lim, counts = (torch.from_numpy(a).to(device)
+                                    for a in cmd_edge_lanes(s))
+        st_p, fr_p = cmd_pass.cmd_pass_plain(packed, inc, lim, counts, s)
+        st_k, fr_k = cmd_pass.cmd_pass(packed, inc, lim, counts, s)
+        torch.cuda.synchronize()
+        err = _max_err([(st_k, st_p), (fr_k, fr_p)])
+        assert err == 0, f"cmd_pass kernel differs from its plain version " \
+            f"on the edge lanes at s {s} by {err}"
+    assert cmd_pass.build().dtpu_cmd_pass_smem() == cmd_pass.SHARED_BYTES
+    print(f"[{tag}] cmd_pass kernel == plain on starts, freqs of "
+          f"{packed.shape[0]} edge lanes over 256 rows at s 16, 64 and 256 "
+          f"(lim above 0x8000, the renorm cap; max_abs_err 0) | {smi}")
+
+
 def phase_mix(corpus: bytes, device, smi: str) -> dict:
     """The mix profile at full width (force_stride_value=4, quality 10,
     the whole corpus): the host-only reference, kernel 5 and then the
@@ -854,6 +1037,7 @@ def phase_mix(corpus: bytes, device, smi: str) -> dict:
         "a mix-profile frame's literals left the generic pass"
     e5, st, fr, counts = _generic_compare(got, opts, device, "mix-compare",
                                           smi)
+    _generic_edge_compare(device, "mix-compare", smi)
     re_ = _rans_compare(st, fr, counts, "mix-compare", "generic lit lanes",
                         smi)
     n = len(fmt.deserialize(ref)[2])
@@ -863,7 +1047,8 @@ def phase_mix(corpus: bytes, device, smi: str) -> dict:
         dict(cmd_host=n, lit_generic=n), "mix-main", smi)
     print(f"[mix-main] device encode {mbps:.2f} MB/s against native.compress "
           f"{len(corpus) / t_ref / 1e6:.2f} MB/s in this run | {smi}")
-    _timed_encode(corpus, ref, opts, "mix-main", smi)
+    _timed_encode(corpus, ref, opts, "mix-main", smi,
+                  split=("lit_generic_pass", "deferred_pass_kernel"))
     decode.STATS.update(device_frames=0, host_frames=0)
     t0 = time.perf_counter()
     assert dt.decompress(ref) == corpus, "mix-profile round trip differs"

@@ -3,9 +3,9 @@
 A second package beside divans_tpu (the JAX reference, which it imports
 nothing of).  Host stages run in the repo's native C++ library; the
 device stages run on an NVIDIA H100 through hand-written CUDA kernels
-(csrc/) with plain PyTorch around them.  Decode runs on "cuda" unless
-the caller passes device="cpu", where each kernel's plain PyTorch
-version runs instead.
+(csrc/) with plain PyTorch around them.  Both entry points, compress
+and decompress, run on "cuda" unless the caller passes device="cpu",
+where each kernel's plain PyTorch version runs instead.
 """
 
 __version__ = "0.1.0"

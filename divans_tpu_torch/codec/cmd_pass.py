@@ -39,8 +39,13 @@ from .deferred import MAX_RENORM_PASSES
 NAME = "cmd_pass"
 _SIGNATURES = {"dtpu_cmd_pass": [ctypes.c_void_p, ctypes.c_int]
                + [ctypes.c_void_p] * 5
-               + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+               + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               "dtpu_cmd_pass_smem": []}
 MAX_ROWS = 256   # flat is 8 bits
+# the kernel's dynamic shared memory (csrc/cmd_pass.cu): two copies of
+# the model and two count histograms of 256 rows of 20 ints (16 and the
+# padding), the row speeds and four 256-bit row masks
+SHARED_BYTES = 4 * (4 * MAX_ROWS * 20 + 2 * MAX_ROWS + 4 * MAX_ROWS // 32)
 
 # kernel launches, counted where the wrapper launches (and nowhere else)
 LAUNCHES = 0

@@ -51,10 +51,13 @@ from .lit_pass import mixer_adjustments
 NAME = "deferred_pass"
 _SIGNATURES = {"dtpu_deferred_pass": [ctypes.c_void_p, ctypes.c_int]
                + [ctypes.c_void_p] * 4
-               + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+               + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+               "dtpu_deferred_pass_smem": [ctypes.c_int]}
 NCOLS = 10          # trace columns (divans_tpu/codec/trace.py)
 NOOP_LIM = 0x4000   # a padding step's lim: blend(row, v, 0, 0x4000) is a no-op
-SCRATCH_INTS = 52   # per lane and row: model 16, two pends of 16 + 2
+SCRATCH_INTS = 16   # per lane and row: the model (the pend stays on chip)
+SMEM_MAX = 232448   # a block's shared memory on sm_90
+_SMEM_STATIC = 256  # reserved for the kernel's static shared words
 
 # kernel launches, counted where the wrapper launches (and nowhere else)
 LAUNCHES = 0
@@ -63,6 +66,20 @@ LAUNCHES = 0
 def build():
     """csrc/deferred_pass.cu, compiled for sm_90a at first use, loaded."""
     return cuda_build.load(NAME, _SIGNATURES)
+
+
+def fold_rows(s: int) -> int:
+    """Touched rows the kernel folds and commits at once at chunk s: all
+    of a chunk's (2s) where they fit in shared memory beside its 168 s
+    bytes of staged trace, records, touched lists and hash, else as many
+    as fit at 168 B a row, a multiple of 16 (csrc/deferred_pass.cu)."""
+    fit = (SMEM_MAX - _SMEM_STATIC - 168 * s) // 168 & ~15
+    return min(2 * s, fit)
+
+
+def shared_bytes(s: int) -> int:
+    """The dynamic shared memory of a launch at chunk s (bytes)."""
+    return 168 * s + 168 * fold_rows(s)
 
 
 def pad_traces(traces: list[np.ndarray], multiple: int) -> np.ndarray:

@@ -24,8 +24,9 @@ from divans_tpu.ir import matcher as jmatcher
 from divans_tpu.options import DivansOptions as JOptions
 
 from divans_tpu_torch.codec import cmd_pass, encode
-from divans_tpu_torch.codec.deferred import cmd_chunk
+from divans_tpu_torch.codec.deferred import MAX_RENORM_PASSES, cmd_chunk
 from divans_tpu_torch.codec.layout import ModelLayout, PROFILES
+from divans_tpu_torch.probability import cdf16
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JLAYOUT = JLayout(JP["cm"], lo_bucketed=True)
@@ -248,3 +249,131 @@ def test_pack_rejects_rows_past_the_kernel():
     t[1, 0] = cmd_pass.MAX_ROWS
     with pytest.raises(ValueError):
         cmd_pass.pack_cmd_rows(t)
+
+
+# ---- the kernel's sparse commit, modelled in numpy -------------------------
+
+INIT = 4 * np.arange(1, 17, dtype=np.int64)
+
+
+def _i32(x):
+    """int64 values wrapped to int32, kept as int64."""
+    return (np.asarray(x, np.int64) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _sparse_commit_model(cmd_ts, inc_row, lim_row, s):
+    """csrc/cmd_pass.cu's commit rule, lane by lane, in numpy: at the end
+    of chunk c only the rows chunk c-1 counted and the rows whose last
+    commit left entry 15 at or above 0x8000 (the `over` rows) commit;
+    every other row keeps its values.  Returns ([(starts, freqs)] per
+    lane, the commits of over rows chunk c-1 did not count)."""
+    r = inc_row.shape[0]
+    out, over_only = [], 0
+    for t in cmd_ts:
+        n = t.shape[0]
+        model = np.tile(INIT, (r, 1))
+        cnt = np.zeros((2, r, 16), np.int64)
+        counted = [set(), set()]
+        over = set()
+        starts = np.zeros(n, np.int64)
+        freqs = np.zeros(n, np.int64)
+        for c in range(-(-n // s)):
+            par, pp = c & 1, (c & 1) ^ 1
+            x = t[c * s:(c + 1) * s]
+            act = x[:, 3] != 0
+            rows = np.where(act[:, None], model[x[:, 0]], INIT)
+            st, fr = cdf16.sym_to_start_freq(
+                torch.from_numpy(rows.astype(np.int32)),
+                torch.from_numpy(x[:, 1].astype(np.int32)))
+            starts[c * s:c * s + x.shape[0]] = st.numpy()
+            freqs[c * s:c * s + x.shape[0]] = fr.numpy()
+            for row, sym in x[act][:, :2]:
+                cnt[par, row, sym] += 1
+                counted[par].add(int(row))
+            over_only += len(over - counted[pp])
+            for row in sorted(counted[pp] | over):
+                cum = np.cumsum(cnt[pp, row])
+                v = _i32(model[row] + _i32(int(inc_row[row]) * cum))
+                lim_eff = lim_row[row] if cum[15] > 0 else 0x8000
+                for _ in range(MAX_RENORM_PASSES):
+                    if v[15] < lim_eff:
+                        break
+                    cb = _i32(v + np.arange(1, 17))
+                    v = cb - (cb >> 2)
+                model[row] = v
+                cnt[pp, row] = 0
+                (over.add if v[15] >= 0x8000 else over.discard)(row)
+            counted[pp] = set()
+        out.append((starts, freqs))
+    return out, over_only
+
+
+def _turn_lane(rng, n, r_rows):
+    """A cmd trace whose chunk c hits only the rows r with r % 3 == c % 3
+    (four of them): a row is coded against two commits after its chunk,
+    once it has been committed both as counted and as untouched."""
+    t = np.zeros((n, 10), np.int32)
+    chunk_of = np.arange(n) // S
+    t[:, 0] = 3 * rng.integers(0, 4, n) + chunk_of % 3
+    t[:, 1] = rng.integers(0, 16, n)
+    assert t[:, 0].max() < r_rows
+    return t
+
+
+@pytest.mark.parametrize("inc,lim", [(512, 0xA000), (1 << 22, 0x8000)],
+                         ids=["lim_above_0x8000", "renorm_cap"])
+def test_sparse_commit_matches_xla_and_plain(inc, lim):
+    """The kernel's sparse commit (counted rows plus the over rows),
+    modelled in numpy, equals the XLA model_pass_deferred_cmd and
+    cmd_pass_plain (the dense rule) where commits leave entry 15 at or
+    above 0x8000: with lim above 0x8000, and with inc so large that
+    rows hit the 24-pass cap still above it.  Rows take turns, so a row
+    is coded against only once both commits have brought it below 2^15
+    (the XLA pass's exact row fetch); rows counted at other speeds fill
+    the rest of the 256-row model."""
+    rng = np.random.default_rng(30)
+    r = cmd_pass.MAX_ROWS
+    inc_row = np.full(r, inc, np.int32)
+    lim_row = np.full(r, lim, np.int32)
+    inc_row[12:], lim_row[12:] = 24, 0x2000
+    turns = _turn_lane(rng, 30 * S, r)
+    wide = np.zeros((9 * S + 5, 10), np.int32)
+    wide[:, 0] = rng.integers(12, r, wide.shape[0])
+    wide[:, 1] = rng.integers(0, 16, wide.shape[0])
+    cmd_ts = [turns, wide]
+    for t in cmd_ts:
+        t[:, 3] = inc_row[t[:, 0]]
+        t[:, 4] = lim_row[t[:, 0]]
+    t = turns.copy()
+    t[rng.random(t.shape[0]) < 0.2, 3] = 0      # inactive steps
+    cmd_ts.append(t)
+    got, over_only = _sparse_commit_model(cmd_ts, inc_row, lim_row, S)
+    assert over_only >= 8, "few rows committed for their entry 15 alone"
+    st_x, fr_x = _xla(cmd_ts, inc_row, lim_row, r)
+    st, fr, _n = _port(cmd_ts, inc_row, lim_row, st_x.shape[1])
+    for i, t in enumerate(cmd_ts):
+        k = t.shape[0]
+        assert np.array_equal(got[i][0], st_x[i, :k]), i
+        assert np.array_equal(got[i][1], fr_x[i, :k]), i
+        assert np.array_equal(st[i, :k], st_x[i, :k]), i
+        assert np.array_equal(fr[i, :k], fr_x[i, :k]), i
+
+
+def test_sparse_commit_matches_xla_on_real_traces():
+    """The sparse commit model on real quality-11 cmd traces (no row
+    there ever reaches 0x8000, so only counted rows commit)."""
+    cmd_ts, r_cmd = _cmd_ts(_traces(11, n_blocks=2, seed=12))
+    inc_row, lim_row = jax_engine.cmd_speeds_from_rows(cmd_ts, r_cmd)
+    got, _o = _sparse_commit_model(cmd_ts, inc_row, lim_row, S)
+    st_x, fr_x = _xla(cmd_ts, inc_row, lim_row, r_cmd)
+    for i, t in enumerate(cmd_ts):
+        k = t.shape[0]
+        assert np.array_equal(got[i][0], st_x[i, :k]), i
+        assert np.array_equal(got[i][1], fr_x[i, :k]), i
+
+
+def test_shared_memory_fits_a_block():
+    """The kernel's dynamic shared memory fits a block (232,448 B) with
+    room for its static words, for every s it takes (one size)."""
+    assert cmd_pass.SHARED_BYTES == 84096
+    assert cmd_pass.SHARED_BYTES + 256 <= 232448

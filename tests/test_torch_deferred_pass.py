@@ -25,8 +25,13 @@ from divans_tpu.codec import pallas_model
 from divans_tpu.codec.layout import ModelLayout as JLayout, PROFILES as JP
 from divans_tpu.options import DivansOptions as JOptions
 
-from divans_tpu_torch.codec import deferred_pass, encode
+from divans_tpu_torch.codec import deferred, deferred_pass, encode
 from divans_tpu_torch.codec.deferred import cmd_chunk
+from divans_tpu_torch.codec.lit_model import NORM_WEIGHT_INIT
+from divans_tpu_torch.codec.lit_pass import mixer_adjustments
+from divans_tpu_torch.probability import cdf16
+from divans_tpu_torch.probability.weights import (WEIGHT_MAX, fix_weights,
+                                                  norm_weight)
 from divans_tpu_torch.codec.layout import (ModelLayout, PROFILES,
                                            profile_for_options)
 from divans_tpu_torch.options import DivansOptions
@@ -305,3 +310,218 @@ def test_padding_and_split_match_reference():
     assert got.shape == (3, 1024, 10) and got.dtype == np.int32
     assert np.array_equal(ref[:, :1024], got)
     assert (ref[:, 1024:] == got[2, 0]).all()
+
+
+# ---- the kernel's on-chip pend, modelled in numpy --------------------------
+
+def _i32(x):
+    """int64 values wrapped to int32, kept as int64."""
+    return (np.asarray(x, np.int64) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _kernel_pend_model(ts, num_rows, s):
+    """csrc/deferred_pass.cu's pend, lane by lane, in numpy: a chunk's
+    hits become records at their steps' places (2j the row, 2j+1 the cm
+    row) keyed by the row's slot in an open-addressing hash of 4s slots
+    (the kernel's multiplicative hash, linear probing), whose first
+    insert appends the row to the chunk's touched list; the keys then
+    trade slots for list places; the next chunk folds the records into
+    a fold area of fold_rows(s) rows (the touched rows' 16 inc sums, lim
+    sums and hits), in rounds when the list is longer, and commits the
+    listed rows from it.  Each step is coded against the
+    snapshot as the plain version codes it.  Returns ([(starts, freqs)]
+    per lane, the rounds past the first, the longest touched list)."""
+    k_rows = deferred_pass.fold_rows(s)
+    hbits = (4 * s).bit_length() - 1
+    bias = np.arange(1, 17)
+    out, extra_rounds, longest = [], 0, 0
+    for t in ts:
+        n = t.shape[0]
+        model = np.tile(4 * bias, (num_rows, 1)).astype(np.int64)
+        weights = torch.tensor([[1, 1, NORM_WEIGHT_INIT]] * 2,
+                               dtype=torch.int32)
+        starts = np.zeros(n, np.int64)
+        freqs = np.zeros(n, np.int64)
+        prev = None
+        for c in range(-(-n // s)):
+            x = t[c * s:(c + 1) * s].astype(np.int64)
+            q = torch.from_numpy(x.astype(np.int32))[None]
+            flat, value, mix, which, cm_idx = (q[..., i]
+                                               for i in (0, 1, 5, 6, 7))
+            rows = torch.from_numpy(_i32(model[x[:, 0]]).astype(np.int32))[None]
+            cm_rows = torch.from_numpy(
+                _i32(model[x[:, 7]]).astype(np.int32))[None]
+            do_mix = mix != 0
+            nw = weights[which.long(), 2] & 0xFFFF
+            coded = torch.where(do_mix[..., None],
+                                cdf16.average(cm_rows, rows, nw), rows)
+            start, freq = cdf16.sym_to_start_freq(coded, value)
+            starts[c * s:c * s + x.shape[0]] = start[0].numpy()
+            freqs[c * s:c * s + x.shape[0]] = freq[0].numpy()
+            p_cm = cdf16.sym_to_start_freq(cm_rows, value)[1]
+            p_nib = cdf16.sym_to_start_freq(rows, value)[1]
+            wadj = torch.stack([mixer_adjustments(freq, p_cm, p_nib,
+                                                  do_mix & (which == w))[0]
+                                for w in (0, 1)])          # [which, 2]
+
+            # ---- records, the row hash and the touched list
+            hkey = np.full(4 * s, -1, np.int64)
+            hval = np.zeros(4 * s, np.int64)
+            touched = []
+            key = np.full(2 * s, -1, np.int64)
+            rinc = np.zeros(2 * s, np.int64)
+            rlim = np.zeros(2 * s, np.int64)
+            for j, st in enumerate(x):
+                for at, row, inc, lim, on in (
+                        (2 * j, st[0], st[3], st[4], st[3] != 0),
+                        (2 * j + 1, st[7], st[8], st[9],
+                         st[5] != 0 and st[8] != 0)):
+                    if not on:
+                        continue
+                    slot = ((int(row) * 0x9E3779B1) & 0xFFFFFFFF) \
+                        >> (32 - hbits)
+                    while hkey[slot] not in (-1, row):
+                        slot = (slot + 1) & (4 * s - 1)
+                    if hkey[slot] == -1:
+                        hkey[slot], hval[slot] = row, len(touched)
+                        touched.append(row)
+                    key[at] = slot | int(st[1]) << 16
+                    rinc[at], rlim[at] = inc, lim
+            live = key >= 0
+            key[live] = (key[live] & ~0xFFFF) | hval[key[live] & 0xFFFF]
+            longest = max(longest, len(touched))
+
+            # ---- fold and commit the previous chunk's (lag 1)
+            if prev is not None:
+                pkey, pinc, plim, plist, pwadj = prev
+                place, sym = pkey & 0xFFFF, pkey >> 16
+                for r0 in range(0, len(plist), k_rows):
+                    extra_rounds += r0 > 0
+                    r1 = min(len(plist), r0 + k_rows)
+                    sel = (pkey >= 0) & (place >= r0) & (place < r1)
+                    f_add = np.zeros((r1 - r0, 16), np.int64)
+                    f_lim = np.zeros(r1 - r0, np.int64)
+                    f_hits = np.zeros(r1 - r0, np.int64)
+                    np.add.at(f_add, (place[sel] - r0, sym[sel]), pinc[sel])
+                    np.add.at(f_lim, place[sel] - r0, plim[sel])
+                    np.add.at(f_hits, place[sel] - r0, 1)
+                    v = _i32(model[plist[r0:r1]]
+                             + _i32(np.cumsum(f_add, axis=1)))
+                    lim_eff = _i32(f_lim) // np.maximum(f_hits, 1)
+                    for _ in range(deferred.MAX_RENORM_PASSES):
+                        over = v[:, 15] >= lim_eff
+                        if not over.any():
+                            break
+                        cb = _i32(v + bias)
+                        v = np.where(over[:, None], cb - (cb >> 2), v)
+                    model[plist[r0:r1]] = v
+                w01 = torch.clamp(weights[:, :2] + pwadj, 1, WEIGHT_MAX)
+                w0, w1 = fix_weights(w01[:, 0], w01[:, 1])
+                weights = torch.stack([w0, w1, norm_weight(w0, w1)], dim=-1)
+            prev = (key, rinc, rlim, np.array(touched, np.int64), wadj)
+        out.append((starts, freqs))
+    return out, extra_rounds, longest
+
+
+def _pend_lanes(s, seed):
+    """Lanes at chunk s over 4s + 8 rows: every step mixing on rows
+    distinct within its chunk (2s touched rows a chunk), and one row and
+    one cm row hit by every step; moderate speeds, so the XLA pass's
+    exact range holds."""
+    rng = np.random.default_rng(seed)
+    r = 4 * s + 8
+    distinct = _synthetic(rng, 3 * s, r, 24, 0x2000, mix_share=1.0,
+                          cm_inc=16, cm_lim=0x3000)
+    for c in range(3):
+        distinct[c * s:(c + 1) * s, 0] = rng.permutation(2 * s)[:s]
+        distinct[c * s:(c + 1) * s, 7] = 2 * s + rng.permutation(2 * s)[:s]
+    hot = _synthetic(rng, 3 * s + s // 2, r, 24, 0x2000, mix_share=1.0,
+                     cm_inc=16, cm_lim=0x3000)
+    hot[:, 0], hot[:, 7] = 3, 4 * s + 5
+    return [distinct, hot], r
+
+
+@pytest.mark.parametrize("s", [16, 1024])
+def test_kernel_pend_matches_replay_and_xla(s):
+    """The kernel's on-chip pend (records, row hash, fold in rounds,
+    commit of the touched rows), modelled in numpy, equals
+    deferred.replay_trace and the XLA model_pass_deferred on lanes whose
+    chunks touch 2s distinct rows (at s = 1024 more than the fold area
+    holds, so the commit runs in rounds) and on a row hit by every
+    step."""
+    ts, r = _pend_lanes(s, seed=20 + s)
+    got, extra_rounds, longest = _kernel_pend_model(ts, r, s)
+    assert longest == 2 * s
+    assert (extra_rounds > 0) == (2 * s > deferred_pass.fold_rows(s))
+    padded = jax_engine._pad_traces(ts, multiple=s)
+    sx, fx = (np.asarray(a) for a in jax_engine.model_pass_deferred(
+        jnp.asarray(padded), r, s))
+    for i, t in enumerate(ts):
+        k = t.shape[0]
+        rs, rf = _replay(t, s)
+        assert np.array_equal(got[i][0], rs), i
+        assert np.array_equal(got[i][1], rf), i
+        assert np.array_equal(sx[i, :k], rs), i
+        assert np.array_equal(fx[i, :k], rf), i
+
+
+def test_kernel_pend_renorm_cap_touched_rows_only():
+    """The pend model at the 24-pass cap: touched rows only renorm, as
+    in deferred.replay_trace (the case of
+    test_renorm_cap_touched_rows_only)."""
+    rng = np.random.default_rng(7)
+    t = _synthetic(rng, 20 * 32, 4, 1 << 21, 64, mix_share=0.0)
+    t[:5 * 32, 0] = 1
+    later = t[5 * 32:]
+    later[:, 0] = rng.integers(1, 4, later.shape[0])
+    later[later[:, 0] == 1, 3] = 0
+    (st, fr), = _kernel_pend_model([t], 4, 32)[0]
+    rs, rf = _replay(t, 32)
+    assert np.array_equal(st, rs) and np.array_equal(fr, rf)
+
+
+@pytest.mark.parametrize("s", [16, 32, 64, 128, 256, 512, 1024])
+def test_shared_memory_fits_a_block(s):
+    """The kernel's dynamic shared memory at every chunk the wrapper
+    takes, with 256 B for its static words, fits a block (232,448 B);
+    through s = 256 every row a chunk can touch fits the fold area."""
+    k = deferred_pass.fold_rows(s)
+    assert deferred_pass.shared_bytes(s) + 256 <= deferred_pass.SMEM_MAX
+    assert deferred_pass.SMEM_MAX == 232448
+    assert k % 16 == 0 and k >= 16
+    assert k == 2 * s or s >= 512
+
+
+def _fp64_floor_div(a, b):
+    """The kernels' floor division (csrc/deferred_pass.cu and cmd_pass.cu
+    floor_div): floor(a * (1.0 / b)) in IEEE double, then one correction
+    by the remainder."""
+    q = np.floor(a.astype(np.float64) * (1.0 / b.astype(np.float64)))
+    q = q.astype(np.int64)
+    r = a - q * b
+    return q + (r >= b) - (r < 0)
+
+
+@pytest.mark.parametrize("part", ["small_divisors", "large_divisors"])
+def test_fp64_floor_division_is_exact(part):
+    """The FP64 floor division equals integer floor division for every
+    int32 numerator and positive int32 divisor: every divisor up to 2^16
+    against the numerators where an error would show (0, +-1, around
+    each end of int32, and the multiples of the divisor nearest 2^31 and
+    -2^31, with their neighbours), and a seeded sample of divisors up to
+    2^31 - 1 against the same numerators and random ones."""
+    rng = np.random.default_rng(13)
+    if part == "small_divisors":
+        b = np.arange(1, (1 << 16) + 1, dtype=np.int64)
+    else:
+        b = rng.integers(1 << 16, (1 << 31) - 1, 1 << 16, dtype=np.int64)
+    top = ((1 << 31) - 1) // b * b
+    bottom = -((1 << 31) // b) * b
+    a = np.stack([np.zeros_like(b), np.ones_like(b), -np.ones_like(b),
+                  np.full_like(b, (1 << 31) - 1), np.full_like(b, -1 << 31),
+                  top, top - 1, top - b, top - b + 1, bottom, bottom + 1,
+                  bottom + b - 1, b, b - 1, -b, -b + 1,
+                  rng.integers(-1 << 31, 1 << 31, b.shape[0])])
+    a = np.clip(a, -1 << 31, (1 << 31) - 1)
+    bb = np.broadcast_to(b, a.shape)
+    assert np.array_equal(_fp64_floor_div(a, bb), a // bb)
