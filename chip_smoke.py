@@ -13,12 +13,19 @@ Phases, each printing its line; any failure raises and exits non-zero:
   4. encode kernels against their plain versions: the main path's first
      batch (the corpus's first HYBRID_BATCH frames, packed its way) goes
      through the literal model pass twice on the card, kernel and plain
-     PyTorch version (equal starts and freqs), then through the rANS
-     encode twice (equal flags, flagged words, header and states);
+     PyTorch version (equal starts and freqs; its bound by the rows each
+     chunk counted beside the old count of 384 x 16 entries a chunk),
+     then through the rANS encode twice (equal flags, flagged words,
+     header and states); the literal pass also on edge lanes
+     (lit_edge_lanes: commits that leave entry 15 at or above 0x8000,
+     rows at the 24-pass cap, the weight clamps, inactive bytes, no
+     mixing, ragged and empty lanes) at chunk 16, 256 and 1024;
   5. encode main path: after one warm encode, the corpus is compressed
      on the card through divans_tpu_torch.compress three times; the
      container must equal the reference bytes, both encode kernels must
-     have launched and no frame may have left the device path;
+     have launched and no frame may have left the device path; one
+     event-timed encode under torch.profiler, whose lit-pass stage is
+     split into the kernel's own device time and the card's wait;
   6. decode kernel against its plain version: the main path's first
      lane group of that container, taken on until every lane has a job
      (so every thread block of the kernel decodes), runs twice on the
@@ -122,11 +129,19 @@ CHUNK = 256
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # integer operations, counted from the kernels' code (a 32-bit integer
-# division is a sequence of ~25 instructions on this card): the literal
-# model pass does ~250 a nibble (six row-entry loads, three averages at
-# one entry each, five exact floor divisions, the adjustment, two
-# histogram atomics) and ~4 a model entry in each chunk's commit (384
-# rows x 16 entries); the rANS encode ~40 a symbol (a compare, a shift,
+# division is a sequence of ~25 instructions on this card; the exact
+# FP64 floor division of csrc/floor_div.cuh ~12, and its reciprocal ~10
+# once a divisor, issued at the INT32 rate: the card has as many FP64
+# lanes as INT32 ones): the literal model pass does ~65 a nibble (the
+# packed byte's fields, three row-entry loads, one reciprocal and two
+# floor divisions, the stores, the histogram and mask atomics) and ~130
+# more a nibble that mixes (three more loads, two more reciprocals and
+# four more divisions, three averages at one entry, the adjustment),
+# ~4 a model entry of each row a chunk counted, in the commit that
+# follows it, and one comparison for each row it did not count (the two
+# weight commits, ~100 a chunk, left out); the count it replaces took a
+# flat ~250 a nibble (five integer divisions), printed beside; the
+# rANS encode ~40 a symbol (a compare, a shift,
 # one floor division, the update, the loads and stores); the cmd model
 # pass ~90 a step (three row-entry loads, two exact floor divisions, the
 # histogram atomic, the stores), ~6 a model entry of each row a chunk
@@ -138,8 +153,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # the adjustments, three more atomics), and ~100 a touched row in each
 # commit (the pend's 16 entries summed and cleared, a division, one
 # renorm pass)
-LIT_PASS_OPS_PER_NIBBLE = 250
+LIT_PASS_OPS_PER_NIBBLE = 65
+LIT_PASS_OPS_PER_MIX_NIBBLE = 130
 LIT_PASS_OPS_PER_ENTRY = 4
+LIT_PASS_OPS_PER_NIBBLE_BEFORE = 250
 RANS_OPS_PER_SYMBOL = 40
 CMD_PASS_OPS_PER_STEP = 90
 CMD_PASS_OPS_PER_ENTRY = 6
@@ -298,17 +315,27 @@ def _lit_pass_compare(got, device, tag: str, smi: str):
     err = _max_err([(st_k, st_p), (fr_k, fr_p)])
     assert err == 0, f"lit_pass kernel differs from its plain version by {err}"
     ms = _cuda_ms(lambda: lit_pass.lit_pass(packed, spd, n_nib, CHUNK), 20)
-    lane_chunks = int(((n_nib + CHUNK - 1) // CHUNK).sum())
+    longest = int(((n_nib + CHUNK - 1) // CHUNK).max())
     # bytes: each live literal byte read once (2 B), speeds and counts,
     # starts and freqs written once; operations per nibble and per commit
-    e = _entry(ms, plain_ms, n_sym + b * 28 + 8 * b * n,
-               LIT_PASS_OPS_PER_NIBBLE * n_sym
-               + LIT_PASS_OPS_PER_ENTRY * 384 * 16 * lane_chunks, err)
+    (n_ops, flat_ops, dense_ops), n_mix = _lit_work(packed, n_nib, CHUNK)
+    n_bytes = n_sym + b * 28 + 8 * b * n
+    e = _entry(ms, plain_ms, n_bytes, n_ops, err)
+    flat = _entry(ms, plain_ms, n_bytes, flat_ops, err)
+    dense = _entry(ms, plain_ms, n_bytes, dense_ops, err)
+    print(f"[{tag}] lit_pass bound by the work the function needs "
+          f"({n_mix} of {n_sym} nibbles mix; the rows each chunk counted): "
+          f"{e['bound_ms']:.6f} ms ({n_ops} ops); at the flat "
+          f"{LIT_PASS_OPS_PER_NIBBLE_BEFORE} a nibble: {flat['bound_ms']:.6f}"
+          f" ms ({flat_ops} ops); with 384 x 16 entries a chunk as well: "
+          f"{dense['bound_ms']:.6f} ms ({dense_ops} ops) | {smi}")
     print(f"[{tag}] lit lanes: {b} lanes, {live} live, {n_sym} nibbles, N "
-          f"{n} | lit_pass kernel == plain on starts, freqs (max_abs_err "
-          f"{err}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-          f"{e['bound_ms']:.6f} ms by {e['bound_by']} ({e['n_bytes']} B, "
-          f"{e['n_ops']} ops) | {smi}")
+          f"{n}, longest lane {longest} chunks | lit_pass kernel == plain on "
+          f"starts, freqs (max_abs_err {err}): kernel {ms:.4f} ms "
+          f"({ms / longest * 1e3:.3f} us a chunk of the longest lane), "
+          f"plain {plain_ms:.2f} ms, bound {e['bound_ms']:.6f} ms by "
+          f"{e['bound_by']} ({e['n_bytes']} B, {e['n_ops']} ops) | "
+          f"{cuda_build.ptxas_usage(lit_pass.NAME)} | {smi}")
     return e, st_k, fr_k, n_nib
 
 
@@ -411,6 +438,7 @@ def phase_encode_compare(corpus: bytes, device, smi: str) -> dict:
     print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B, chunk "
           f"{CHUNK}")
     lp, st, fr, n_nib = _lit_pass_compare(got, device, tag, smi)
+    _lit_edge_compare(device, tag, smi)
     re_ = _rans_compare(st, fr, n_nib, tag, "lit lanes", smi)
     _rans_edge_compare(device, tag, smi)
     return {"lit_pass": lp, "encode_lanes": re_}
@@ -459,7 +487,8 @@ def phase_encode_main(corpus: bytes, ref: bytes, smi: str) -> dict:
     launches, _mbps = _encode_runs(
         corpus, ref, opts, {"lit_pass": lit_pass, "encode_lanes": rans_encode},
         dict(cmd_host=n, lit_device=n), "enc-main", smi)
-    _timed_encode(corpus, ref, opts, "enc-main", smi)
+    _timed_encode(corpus, ref, opts, "enc-main", smi,
+                  split=("lit_pass", "lit_pass_kernel"))
     return launches
 
 
@@ -745,6 +774,44 @@ def _cmd_work(packed, n_steps, r: int, s: int):
             + CMD_PASS_OPS_PER_ENTRY * r * 16 * lane_chunks)
 
 
+def _lit_work(packed, n_nib, chunk: int):
+    """Operations of the lit pass: (what the function needs, the same at
+    the flat per-nibble count of integer divisions it replaces, and that
+    count with a dense commit).  LIT_PASS_OPS_PER_NIBBLE a nibble
+    and LIT_PASS_OPS_PER_MIX_NIBBLE more a nibble that mixes (an active
+    byte with its mix bit); for each chunk that a later chunk of its lane
+    commits, LIT_PASS_OPS_PER_ENTRY x 16 for each of the two model rows
+    of each count row it counted, and one comparison for each other of
+    the 384 model rows.  The dense count took 384 x 16 entries for every
+    chunk of every lane."""
+    p = packed.cpu().numpy().astype(np.int64)
+    s = chunk // 2
+    counted = other = lane_chunks = n_mix = 0
+    for i, k in enumerate(n_nib.cpu().tolist()):
+        if k == 0:
+            continue
+        lane_chunks += -(-k // chunk)
+        last = (k - 1) // chunk   # the lane's last chunk, never committed
+        q = p[i, :k // 2]
+        n_mix += 2 * int(((q >> 14) & (q >> 15) & 1).sum())
+        chunk_of = np.arange(q.shape[0]) // s
+        sel = (((q >> 14) & 1) != 0) & (chunk_of < last)
+        ctx, hi = q[sel] & 63, (q[sel] >> 6) & 15
+        keys = np.concatenate([chunk_of[sel] * 192 + ctx,
+                               chunk_of[sel] * 192 + 64 + (ctx >> 3) * 16
+                               + hi])
+        counted += 2 * len(np.unique(keys))
+        other += last * 384
+    other -= counted
+    n_sym = int(n_nib.sum())
+    commit = LIT_PASS_OPS_PER_ENTRY * 16 * counted + other
+    return (LIT_PASS_OPS_PER_NIBBLE * n_sym
+            + LIT_PASS_OPS_PER_MIX_NIBBLE * n_mix + commit,
+            LIT_PASS_OPS_PER_NIBBLE_BEFORE * n_sym + commit,
+            LIT_PASS_OPS_PER_NIBBLE_BEFORE * n_sym
+            + LIT_PASS_OPS_PER_ENTRY * 384 * 16 * lane_chunks), n_mix
+
+
 def _cmd_pass_compare(got, device, tag: str, smi: str):
     """The cmd model pass, kernel against plain, on the batch's cmd
     lanes, packed the main path's way (every frame's cmd stream on the
@@ -1021,6 +1088,91 @@ def _cmd_edge_compare(device, tag: str, smi: str) -> None:
     print(f"[{tag}] cmd_pass kernel == plain on starts, freqs of "
           f"{packed.shape[0]} edge lanes over 256 rows at s 16, 64 and 256 "
           f"(lim above 0x8000, the renorm cap; max_abs_err 0) | {smi}")
+
+
+def lit_edge_lanes(chunk: int, seed: int = 13):
+    """Lanes for kernel 3 at this chunk (numpy, seeded): (rows, spd),
+    rows[i] uint16 [n_i] packed bytes (ctx | hi<<6 | lo<<10 | act<<14 |
+    mix<<15, ctx 0 where inactive, as native.pack_lit packs them), spd
+    int32 [B, 6] = (inc, lim) of speeds 0, 2 and 3.  Two lanes hit a
+    third of their count rows in turn (ctx and idx = (ctx>>3)*16 + hi
+    both equal to the chunk's index mod 3), so a row is coded against
+    only after two commits: one with lim 0xA000, whose commits leave
+    entry 15 at or above 0x8000 every few turns; one with inc 2^30 / s,
+    whose rows hit the 24-pass cap and stay above 0x8000.  Beside them a
+    lane of two symbols in turns, which its cm rows learn fast and its
+    nibble rows slowly, so the weights reach their clamps and the 24-bit
+    over-rule; a lane with inactive bytes and a ragged end; a non-mixing
+    lane; a ragged lane; an empty lane."""
+    rng = np.random.default_rng(seed + chunk)
+    s = chunk // 2
+
+    def lane(n, act=1.0, mix=1.0):
+        x = np.zeros((n, 5), np.int64)          # ctx, hi, lo, act, mix
+        x[:, 0] = rng.integers(0, 64, n)
+        x[:, 1] = rng.integers(0, 16, n)
+        x[:, 2] = rng.integers(0, 16, n)
+        x[:, 3] = rng.random(n) < act
+        x[:1, 3] = 1                            # the first byte is live
+        x[:, 4] = (rng.random(n) < mix) & (x[:, 3] != 0)
+        return x
+
+    def turns():
+        n = 30 * s
+        r = np.arange(n) // s % 3
+        x = lane(n)
+        x[:, 0] = 3 * rng.integers(0, 4, n) + r
+        x[:, 1] = (r - (x[:, 0] >> 3) * 16) % 3 + 3 * rng.integers(0, 5, n)
+        return x
+
+    # symbols 12 and 3 in turns of 6 chunks: the fast cm rows learn each
+    # turn's symbol, the slow nibble rows keep some of both, so the first
+    # chunks of a turn drive the nibble weight up by ~2^21 a byte
+    two = lane(36 * s)
+    two[:, 0] = rng.choice([5, 40], two.shape[0])
+    two[:, 1] = np.where(np.arange(36 * s) // (6 * s) % 2 == 0, 12, 3)
+    two[:, 2] = two[:, 1]
+    slow, fast = max(1, 64 // s), 8192 // s
+    lanes = [(turns(), [32768 // s, 0xA000] * 3),
+             (turns(), [(1 << 30) // s, 0x8000] * 3),
+             (two, [slow, 0x7000, fast, 0x7000, fast, 0x7000]),
+             (lane(7 * s + 3, act=0.7, mix=0.5),
+              [20, 0x3000, 32, 0x4000, 12, 0x1800]),
+             (lane(6 * s, mix=0.0), [16, 0x2000, 24, 0x2000, 8, 0x1000]),
+             (lane(5 * s + s // 2 + 1), [24, 0x4000, 16, 0x4000, 20, 0x4000]),
+             (lane(0), [24, 0x4000, 16, 0x4000, 20, 0x4000])]
+    rows = []
+    for x, _sp in lanes:
+        x[x[:, 3] == 0, 0] = 0
+        rows.append((x[:, 0] | x[:, 1] << 6 | x[:, 2] << 10 | x[:, 3] << 14
+                     | x[:, 4] << 15).astype(np.uint16))
+    return rows, np.array([sp for _x, sp in lanes], np.int32)
+
+
+def _lit_edge_compare(device, tag: str, smi: str) -> None:
+    """Kernel 3 against its plain version on lit_edge_lanes at chunk 16,
+    256 and 1024: equal starts and freqs."""
+    for chunk in (16, CHUNK, 1024):
+        rows, spds = lit_edge_lanes(chunk)
+        packed, spd, n_nib = (torch.from_numpy(a).to(device)
+                              for a in encode.batch_inputs(rows, spds, chunk))
+        st_p, fr_p = lit_pass.lit_pass_plain(packed, spd, n_nib, chunk)
+        st_k, fr_k = lit_pass.lit_pass(packed, spd, n_nib, chunk)
+        torch.cuda.synchronize()
+        err = _max_err([(st_k, st_p), (fr_k, fr_p)])
+        assert err == 0, f"lit_pass kernel differs from its plain version " \
+            f"on the edge lanes at chunk {chunk} by {err}"
+    lib = lit_pass.build()
+    assert lib.dtpu_lit_pass_smem() == lit_pass.SHARED_BYTES
+    for chunk in (16, 32, CHUNK, 512, 1024):
+        assert lib.dtpu_lit_pass_threads(chunk) == lit_pass.threads(chunk)
+    print(f"[{tag}] lit_pass kernel == plain on starts, freqs of "
+          f"{len(rows)} edge lanes at chunk 16, 256 and 1024 (lim above "
+          f"0x8000, the renorm cap, the weight clamps, inactive bytes, no "
+          f"mixing, ragged and empty lanes; max_abs_err 0; "
+          f"{lit_pass.SHARED_BYTES} B of shared memory, "
+          f"{lit_pass.threads(CHUNK)} threads a block at chunk {CHUNK}) | "
+          f"{smi}")
 
 
 def phase_mix(corpus: bytes, device, smi: str) -> dict:

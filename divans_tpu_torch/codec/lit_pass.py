@@ -39,7 +39,24 @@ from .layout import ModelLayout, PROFILES
 NAME = "lit_pass"
 _SIGNATURES = {"dtpu_lit_pass": [ctypes.c_void_p, ctypes.c_int]
                + [ctypes.c_void_p] * 4
-               + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+               + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+               "dtpu_lit_pass_smem": [],
+               "dtpu_lit_pass_threads": [ctypes.c_int]}
+# the kernel's dynamic shared memory (csrc/lit_pass.cu), one size for
+# every chunk: two copies of the model (384 rows) and two count
+# histograms (192 rows) of 20 ints (16 and the padding), four 384-bit
+# row masks, two copies of the weights, two chunks' adjustments (four
+# sums for each of up to 8 coder warps) and a pair of CDF_INIT rows
+SHARED_BYTES = 4 * (2 * 384 * 20 + 2 * 192 * 20 + 4 * 384 // 32 + 16
+                    + 2 * 8 * 4 + 2 * 20)
+
+
+def threads(chunk: int) -> int:
+    """The kernel's threads a block at `chunk` (csrc/lit_pass.cu's
+    dtpu_lit_pass_threads): 384 committers, a warp for the two weight
+    threads, and a coder a nibble up to 256 (at least one warp)."""
+    return 384 + 32 + min(max(chunk, 32), 256)
+
 
 # kernel launches, counted where the wrapper launches (and nowhere else)
 LAUNCHES = 0
@@ -78,7 +95,9 @@ def from_tpu_lit_planes(packed, spd_pl):
 
 
 def lit_pass(rows, spd, n_nib, chunk: int):
-    """(starts, freqs) int32 [B, N] of every lane's literal nibbles."""
+    """(starts, freqs) int32 [B, N] of every lane's literal nibbles: on
+    CUDA one block of threads(chunk) threads and SHARED_BYTES of shared
+    memory a lane."""
     global LAUNCHES
     dev = rows.device
     if dev.type == "cpu":

@@ -69,6 +69,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "floor_div.cuh"
+
 namespace {
 
 constexpr int kMaxRows = 256;      // flat is 8 bits; one commit thread each
@@ -92,23 +94,6 @@ __device__ __forceinline__ int mul32(int a, int b) {
 
 __device__ __forceinline__ int shl32(int a, int s) {
   return (int)((uint32_t)a << s);
-}
-
-// floor(a / b) for b >= 1 (torch's integer `//`), given rcp = 1.0 / b in
-// double: |a| < 2^31, so a * rcp is within 2^-21 / b of a / b, less than
-// the 1 / b that separates a / b from the next integer, and one
-// correction by the remainder (an exact quotient may land just below)
-// makes it exact.  The FP64 unit does this in a few dependent
-// instructions; the integer unit's division takes ~25.
-__device__ __forceinline__ int floor_div(int a, int b, double rcp) {
-  int q = (int)floor((double)a * rcp);
-  const long long r = (long long)a - (long long)q * b;
-  if (r >= b) {
-    ++q;
-  } else if (r < 0) {
-    --q;
-  }
-  return q;
 }
 
 // (start, freq) of `sym` from the three CDF entries it needs: c_prev =

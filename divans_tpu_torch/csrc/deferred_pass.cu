@@ -67,7 +67,7 @@
 // A barrier ends each phase.  No global atomic is left, and global memory
 // holds only the model.  Rows no hit touched are never committed, the
 // normative rule.  The floor divisions run on the FP64 unit, exact (see
-// floor_div).  The block sets up its lane's model (CDF_INIT, 16-byte
+// floor_div.cuh).  The block sets up its lane's model (CDF_INIT, 16-byte
 // stores).
 //
 // Shared memory, sized by s (a chunk touches at most 2s rows):
@@ -96,6 +96,8 @@
 // fills B SMs; the output does not depend on how lanes map to blocks.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "floor_div.cuh"
 
 namespace {
 
@@ -139,27 +141,6 @@ __device__ __forceinline__ int bitlen(int x) {   // 0 for x <= 0
 __device__ __forceinline__ int wrap16(int x) {
   const int v = x & 0xFFFF;
   return v >= 0x8000 ? v - 0x10000 : v;
-}
-
-// floor(a / b) for b >= 1 (torch's integer `//`), given rcp = 1.0 / b in
-// double: |a| < 2^31, so a * rcp is within 2^-21 / b of a / b, less than
-// the 1 / b that separates a / b from the next integer, and one
-// correction by the remainder (an exact quotient may land just below)
-// makes it exact.  The FP64 unit does this in a few dependent
-// instructions; the integer unit's division takes ~25.
-__device__ __forceinline__ int floor_div(int a, int b, double rcp) {
-  int q = (int)floor((double)a * rcp);
-  const long long r = (long long)a - (long long)q * b;
-  if (r >= b) {
-    ++q;
-  } else if (r < 0) {
-    --q;
-  }
-  return q;
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return floor_div(a, b, 1.0 / (double)b);
 }
 
 // (start, freq) of `sym` from the three CDF entries it needs: c_prev =

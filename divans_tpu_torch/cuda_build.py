@@ -2,7 +2,8 @@
 
 Each kernel is one source, csrc/<name>.cu, with a plain C entry point.
 `load(name, signatures)` compiles it with nvcc for sm_90a into
-_build/<name>.so when the library is absent or older than its source,
+_build/<name>.so when the library is absent or older than its source or
+than a header of csrc/ (csrc/*.cuh, which the sources include),
 loads it with ctypes and sets each entry point's argument types (every
 entry point returns an int: cudaGetLastError() after its launch).
 
@@ -13,6 +14,7 @@ spills) and the seconds each build took are kept per kernel.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -62,8 +64,9 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
         t0 = time.perf_counter()
         src = os.path.join(CSRC, f"{name}.cu")
         so = os.path.join(BUILD_DIR, f"{name}.so")
-        if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(
-                src):
+        newest = max(os.path.getmtime(p) for p in
+                     [src] + glob.glob(os.path.join(CSRC, "*.cuh")))
+        if not os.path.exists(so) or os.path.getmtime(so) < newest:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             res = subprocess.run(

@@ -493,9 +493,8 @@ def test_shared_memory_fits_a_block(s):
 
 
 def _fp64_floor_div(a, b):
-    """The kernels' floor division (csrc/deferred_pass.cu and cmd_pass.cu
-    floor_div): floor(a * (1.0 / b)) in IEEE double, then one correction
-    by the remainder."""
+    """The model passes' floor division (csrc/floor_div.cuh): floor(a *
+    (1.0 / b)) in IEEE double, then one correction by the remainder."""
     q = np.floor(a.astype(np.float64) * (1.0 / b.astype(np.float64)))
     q = q.astype(np.int64)
     r = a - q * b

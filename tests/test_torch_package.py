@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import divans_tpu_torch
+from divans_tpu_torch import cuda_build
 from divans_tpu_torch.ans import rans_encode
 from divans_tpu_torch.codec import cmd_pass, deferred_pass, lit_decode, lit_pass
 
@@ -86,6 +87,45 @@ def test_kernel_wrapper_rejects_other_devices(call):
     other device is the kernel's or an error, never a silent fallback."""
     with pytest.raises(ValueError):
         call()
+
+
+@pytest.mark.parametrize("touched,rebuilds", [
+    (None, False), ("k.cu", True), ("floor_div.cuh", True)],
+    ids=["nothing", "source", "header"])
+def test_kernel_rebuilds_when_its_source_or_a_header_is_newer(
+        tmp_path, monkeypatch, touched, rebuilds):
+    """cuda_build.load compiles csrc/<name>.cu again when the source or
+    any csrc/*.cuh header (which the sources include) is newer than the
+    built library, and only then (nvcc and the loader stubbed)."""
+    csrc, build = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    build.mkdir()
+    for f in ("k.cu", "floor_div.cuh"):
+        (csrc / f).write_text("")
+        os.utime(csrc / f, (1000, 1000))
+    (build / "k.so").write_text("")
+    os.utime(build / "k.so", (2000, 2000))
+    if touched:
+        os.utime(csrc / touched, (3000, 3000))
+    runs = []
+
+    def fake_nvcc(cmd, **_kw):
+        runs.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "w").close()
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    class Lib:
+        def __getattr__(self, _name):
+            return type("Fn", (), {})()
+
+    monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(build))
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "run", fake_nvcc)
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda _path: Lib())
+    cuda_build.load("k", {"entry": []})
+    assert len(runs) == int(rebuilds)
 
 
 def _lint_module():
