@@ -5,9 +5,10 @@
 
 Phases, each printing its line; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi) and CUDA;
-  2. build: the five kernels (csrc/lit_decode.cu, lit_pass.cu,
-     rans_encode.cu, cmd_pass.cu, deferred_pass.cu), one nvcc each, all
-     started together, and the host C++ library;
+  2. build: the seven kernels (csrc/lit_decode.cu, lit_pass.cu,
+     rans_encode.cu, cmd_pass.cu, deferred_pass.cu, model_pass.cu,
+     scan_decode.cu), one nvcc each, all started together, and the host
+     C++ library;
   3. a 48 MiB corpus, and its host-only container (native.compress,
      metablock 2^18, chunk_nibbles 256): the reference bytes;
   4. encode kernels against their plain versions: the main path's first
@@ -83,7 +84,34 @@ Phases, each printing its line; any failure raises and exits non-zero:
      literals, the rANS encode on both): the reference; on the first
      batch the cmd pass and the rANS encode on the cmd lanes, the
      generic pass and the rANS encode on the literal lanes, each
-     against its plain version; one warm and one timed encode.
+     against its plain version; one warm and one timed encode;
+ 16. the adaptive profile (chunk_nibbles=0, the default options) on the
+     whole corpus (phase_adaptive): the host-only reference
+     (native.compress); on the main path's own inputs the per-nibble
+     model pass (csrc/model_pass.cu: one launch over the 192 frames'
+     traces, timed, then kernel against plain on each trace's first
+     AD_CMP_STEPS steps, a prefix of the whole launch's), the rANS encode
+     on the 384 lanes of that compare (timed on the whole launch's
+     lanes) and the decode scan (csrc/scan_decode.cu: one launch over the
+     reference container's 192 frames, timed, then kernel against plain
+     on the same packed frames cut at AD_SCAN_CMP_STEPS micro-steps, each
+     window a prefix of the whole launch's); the model pass also on
+     adaptive_edge_traces (coinciding rows, padding steps, the weight
+     clamps, rows with a max of 0 or below) over the cm rows (model in
+     shared memory) and the mix rows (global slab), the scan also on
+     frames with a flipped bit in a cmd and a lit stream and on
+     mix-profile lanes, to their end; one warm and three timed encodes
+     through divans_tpu_torch.compress (each equal to the reference, each
+     kernel launched once), one encode with each stage timed (traces,
+     upload, model pass, rANS, compaction, copy back, assembly); one
+     warm and three timed decodes through divans_tpu_torch.decompress
+     (equal to the corpus, one scan launch, no frame on the host), one
+     with each stage timed, and the host-only decode of the same
+     container beside it (every frame through native.decode_metablock);
+ 17. the same in the stride profile (use_context_map=False) on the first
+     16 MiB (64 frames), one timed run each way;
+ 18. the same at quality 11 on the first 4 MiB (16 frames): the frames
+     holding dict commands leave the scan for the host, counted.
 Each path's launches are counted with the counts set to 0 just before
 its run.  Then one JSON line with the kernels' numbers, one entry for
 each kernel and path (the kernel's launches on that path, its
@@ -93,6 +121,7 @@ comparison on that path's inputs), and as the last line {"ok": true,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import hashlib
 import json
@@ -109,11 +138,12 @@ import torch
 import divans_tpu_torch as dt
 from divans_tpu_torch import cuda_build, native
 from divans_tpu_torch.ans import rans_encode
-from divans_tpu_torch.codec import (cmd_pass, decode, deferred_pass, encode,
-                                    lit_decode, lit_pass)
+from divans_tpu_torch.codec import (adaptive, cmd_pass, decode,
+                                    deferred_pass, encode, lit_decode,
+                                    lit_pass, model_pass, scan_decode)
 from divans_tpu_torch.codec.deferred import SUB_LIT, cmd_chunk, flags_to_chunk
-from divans_tpu_torch.codec.layout import (ModelLayout, PROFILES,
-                                           profile_for_options)
+from divans_tpu_torch.codec.layout import (FLAG_PROFILES, ModelLayout,
+                                           PROFILES, profile_for_options)
 from divans_tpu_torch.container import format as fmt
 
 CORPUS_BYTES = 48 << 20
@@ -132,7 +162,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # division is a sequence of ~25 instructions on this card; the exact
 # FP64 floor division of csrc/floor_div.cuh ~12, and its reciprocal ~10
 # once a divisor, issued at the INT32 rate: the card has as many FP64
-# lanes as INT32 ones): the literal model pass does ~65 a nibble (the
+# lanes as INT32 ones; every model pass divides that way): the literal
+# model pass does ~65 a nibble (the
 # packed byte's fields, three row-entry loads, one reciprocal and two
 # floor divisions, the stores, the histogram and mask atomics) and ~130
 # more a nibble that mixes (three more loads, two more reciprocals and
@@ -143,22 +174,26 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # flat ~250 a nibble (five integer divisions), printed beside; the
 # rANS encode ~40 a symbol (a compare, a shift,
 # one floor division, the update, the loads and stores); the cmd model
-# pass ~90 a step (three row-entry loads, two exact floor divisions, the
-# histogram atomic, the stores), ~6 a model entry of each row a chunk
-# counted, in the commit that follows it (renorm passes not counted), and
-# one comparison for each row it did not count; the generic
-# deferred pass ~100 a step (three row-entry loads, two exact floor
-# divisions, up to three atomics and the stores), ~150 more a mixing step
-# (three more loads, three averages at one entry, three more divisions,
-# the adjustments, three more atomics), and ~100 a touched row in each
-# commit (the pend's 16 entries summed and cleared, a division, one
-# renorm pass)
+# pass ~74 a step (three row-entry loads, one reciprocal and two floor
+# divisions, the histogram atomic, the stores; ~90 with the divisions
+# at the integer unit's ~25, printed beside), ~6 a model entry of each
+# row a chunk counted, in the commit that follows it (renorm passes not
+# counted), and one comparison for each row it did not count; the
+# generic deferred pass ~84 a step (three row-entry loads, one
+# reciprocal and two floor divisions, up to three atomics and the
+# stores), ~143 more a mixing step (three more loads, three averages at
+# one entry, two more reciprocals and four more divisions, the
+# adjustments, three more atomics), and ~97 a touched row in each commit
+# (the pend's 16 entries summed and cleared, one reciprocal and one
+# division, one renorm pass); priced at ~100, ~150 and ~100 before,
+# with the divisions at ~25, printed beside
 LIT_PASS_OPS_PER_NIBBLE = 65
 LIT_PASS_OPS_PER_MIX_NIBBLE = 130
 LIT_PASS_OPS_PER_ENTRY = 4
 LIT_PASS_OPS_PER_NIBBLE_BEFORE = 250
 RANS_OPS_PER_SYMBOL = 40
-CMD_PASS_OPS_PER_STEP = 90
+CMD_PASS_OPS_PER_STEP = 74
+CMD_PASS_OPS_PER_STEP_BEFORE = 90
 CMD_PASS_OPS_PER_ENTRY = 6
 # the literal decode, counted as the function needs it (not as the
 # kernel's rescaled grids spend it): ~90 a decoded nibble on the chain
@@ -174,10 +209,30 @@ DECODE_OPS_PER_NIBBLE = 90
 ADJ_OPS_PER_NIBBLE = 110
 PREMIX_OPS_PER_ENTRY = 15
 COMMIT_OPS_PER_ENTRY = 6
-GENERIC_OPS_PER_STEP = 100
-GENERIC_OPS_PER_MIX_STEP = 150
-GENERIC_OPS_PER_COMMIT = 100
-KERNEL_MODULES = (lit_decode, lit_pass, rans_encode, cmd_pass, deferred_pass)
+GENERIC_OPS_PER_STEP = 84
+GENERIC_OPS_PER_MIX_STEP = 143
+GENERIC_OPS_PER_COMMIT = 97
+GENERIC_OPS_BEFORE = (100, 150, 100)   # step, mixing step, commit
+# the adaptive profile's kernels, counted as the function needs them:
+# the model pass ~230 a step (the trace row, two row gathers, one
+# reciprocal and two floor divisions for (start, freq), two 16-entry
+# blends at ~6 an entry, two row stores, the lane store) and ~170 more a
+# mixing step (three averaged entries, two more reciprocals and four
+# more divisions for the freqs under the cm and nibble rows, the mixer
+# update with its bit lengths and one more division); the decode scan
+# ~230 a coded nibble (the word pull, the row gathers, 15 compares for
+# the symbol, one reciprocal and two divisions, the state advance, one
+# 16-entry blend, the state's transition), ~370 more a nibble that
+# mixes (16 averages, two reciprocals and four divisions, the mixer
+# update, the cm row's blend), and ~30 a copy micro-step (at least one
+# for each 8 bytes the literals did not write)
+MODEL_PASS_OPS_PER_STEP = 230
+MODEL_PASS_OPS_PER_MIX_STEP = 170
+SCAN_OPS_PER_NIBBLE = 230
+SCAN_OPS_PER_MIX_NIBBLE = 370
+SCAN_OPS_PER_COPY_STEP = 30
+KERNEL_MODULES = (lit_decode, lit_pass, rans_encode, cmd_pass, deferred_pass,
+                  model_pass, scan_decode)
 
 
 def build_corpus(target: int) -> bytes:
@@ -339,9 +394,23 @@ def _lit_pass_compare(got, device, tag: str, smi: str):
     return e, st_k, fr_k, n_nib
 
 
-def _rans_compare(st, fr, counts, tag: str, lanes: str, smi: str) -> dict:
+def _rans_work(fr, counts):
+    """(bytes, operations) the rANS encode needs on these lanes: starts
+    and freqs of each coded symbol read once, counts, words and flags
+    written once over [B, N], states."""
+    b, n = fr.shape
+    n_sym = int(counts.sum())
+    return (8 * n_sym + 4 * b + 3 * b * n + 4 * b,
+            RANS_OPS_PER_SYMBOL * n_sym)
+
+
+def _rans_compare(st, fr, counts, tag: str, lanes: str, smi: str,
+                  main=None) -> dict:
     """The rANS encode, kernel against plain, of a model pass's (start,
-    freq): equal flags, flagged words, compact header and states."""
+    freq): equal flags, flagged words, compact header and states.  With
+    `main` (the main path's own (starts, freqs, counts), of which these
+    lanes are a cut), the entry's ms and bound are the kernel's on those
+    lanes, by CUDA events, and the compare's kernel ms goes beside."""
     b, n = st.shape
     n_sym = int(counts.sum())
     (w_p, f_p, s_p), plain_ms = _cuda_ms_once(
@@ -357,14 +426,19 @@ def _rans_compare(st, fr, counts, tag: str, lanes: str, smi: str) -> dict:
         f"on the {lanes} by {err}"
     ms = _cuda_ms(lambda: rans_encode.encode_lanes(st, fr, counts), 20)
     n_words = int(h_k[0].sum())
-    # bytes: starts and freqs of each coded symbol read once, counts,
-    # words and flags written once over [B, N], states
-    e = _entry(ms, plain_ms, 8 * n_sym + 4 * b + 3 * b * n + 4 * b,
-               RANS_OPS_PER_SYMBOL * n_sym, err)
+    e = _entry(ms, plain_ms, *_rans_work(fr, counts), err)
+    main_txt = " | bound"
+    if main is not None:
+        ms_main = _cuda_ms(lambda: rans_encode.encode_lanes(*main), 5)
+        e = dict(_entry(ms_main, plain_ms, *_rans_work(main[1], main[2]),
+                        err), compare_ms=ms, compare=lanes)
+        main_txt = (f" | the main path's {main[1].shape[0]} lanes "
+                    f"({int(main[2].sum())} symbols, N {main[1].shape[1]}):"
+                    f" kernel {ms_main:.4f} ms a launch, bound")
     print(f"[{tag}] {lanes}: {b} lanes, {n_sym} symbols, N {n} | "
           f"encode_lanes kernel == plain on flags, flagged words, header, "
           f"states (max_abs_err {err}, {n_words} words): kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.2f} ms, bound {e['bound_ms']:.6f} ms by "
+          f"ms, plain {plain_ms:.2f} ms{main_txt} {e['bound_ms']:.6f} ms by "
           f"{e['bound_by']} ({e['n_bytes']} B, {e['n_ops']} ops); its real "
           f"limit is the serial chain per lane | {smi}")
     return e
@@ -749,11 +823,12 @@ def phase_q11_compare(corpus16: bytes, device, smi: str) -> dict:
 
 
 def _cmd_work(packed, n_steps, r: int, s: int):
-    """(operations the cmd pass needs, the same counted the old way).
-    CMD_PASS_OPS_PER_STEP a step; for each chunk that a later chunk of
-    its lane commits, CMD_PASS_OPS_PER_ENTRY x 16 for each row it counted
-    and one comparison for each of the R rows it did not.  The old count
-    took R x 16 entries for every chunk of every lane."""
+    """(operations the cmd pass needs, the same at the integer unit's
+    division, CMD_PASS_OPS_PER_STEP_BEFORE a step, and counted the old
+    way).  CMD_PASS_OPS_PER_STEP a step; for each chunk that a later
+    chunk of its lane commits, CMD_PASS_OPS_PER_ENTRY x 16 for each row
+    it counted and one comparison for each of the R rows it did not.
+    The old way took R x 16 entries for every chunk of every lane."""
     p = packed.cpu().numpy().astype(np.int64)
     counted = other = lane_chunks = 0
     for i, k in enumerate(n_steps.cpu().tolist()):
@@ -768,9 +843,10 @@ def _cmd_work(packed, n_steps, r: int, s: int):
         other += int(chunk_of[-1]) * r
     other -= counted
     n_sym = int(n_steps.sum())
-    return (CMD_PASS_OPS_PER_STEP * n_sym
-            + CMD_PASS_OPS_PER_ENTRY * 16 * counted + other,
-            CMD_PASS_OPS_PER_STEP * n_sym
+    commit = CMD_PASS_OPS_PER_ENTRY * 16 * counted + other
+    return (CMD_PASS_OPS_PER_STEP * n_sym + commit,
+            CMD_PASS_OPS_PER_STEP_BEFORE * n_sym + commit,
+            CMD_PASS_OPS_PER_STEP_BEFORE * n_sym
             + CMD_PASS_OPS_PER_ENTRY * r * 16 * lane_chunks)
 
 
@@ -837,14 +913,17 @@ def _cmd_pass_compare(got, device, tag: str, smi: str):
     n_sym = int(n_steps.sum())
     # bytes: each step read once (2 B), the row speeds and counts, starts
     # and freqs written once over [B, N]
-    n_ops, dense_ops = _cmd_work(packed, n_steps, r, s)
+    n_ops, int_ops, dense_ops = _cmd_work(packed, n_steps, r, s)
     cmd = _entry(ms, plain_ms, 2 * n_sym + 8 * b * r + 4 * b + 8 * b * n,
                  n_ops, err)
+    before = _entry(ms, plain_ms, cmd["n_bytes"], int_ops, err)
     dense = _entry(ms, plain_ms, cmd["n_bytes"], dense_ops, err)
-    print(f"[{tag}] cmd_pass bound by the rows each chunk counted: "
-          f"{cmd['bound_ms']:.6f} ms ({n_ops} ops); as counted before, R x "
-          f"16 entries a chunk: {dense['bound_ms']:.6f} ms ({dense_ops} "
-          f"ops) | {smi}")
+    print(f"[{tag}] cmd_pass bound by the rows each chunk counted, FP64 "
+          f"divisions: {cmd['bound_ms']:.6f} ms ({n_ops} ops); with the "
+          f"divisions at the integer unit's ~25 (PR 6-7's count): "
+          f"{before['bound_ms']:.6f} ms ({int_ops} ops); R x 16 entries a "
+          f"chunk as well: {dense['bound_ms']:.6f} ms ({dense_ops} ops) | "
+          f"{smi}")
     print(f"[{tag}] cmd lanes: {b} lanes, {live} live, {n_sym} cmd steps, "
           f"N {n}, {r} rows, chunk {s} steps | cmd_pass kernel == plain on "
           f"starts, freqs (max_abs_err {err}): kernel {ms:.4f} ms, plain "
@@ -918,11 +997,12 @@ def phase_profile_reference(data: bytes, opts, tag: str):
 
 
 def _generic_work(trace, counts, s: int):
-    """(bytes, operations) the generic pass needs on these lanes: each
-    live step's 40 B of trace read once, the counts, starts and freqs
-    written once over [B, N]; GENERIC_OPS_PER_STEP a live step, the mix
-    steps' extra, and GENERIC_OPS_PER_COMMIT for each row a chunk touched
-    that a later chunk of its lane commits."""
+    """(bytes, operations, the operations at PR 6-7's prices) the generic
+    pass needs on these lanes: each live step's 40 B of trace read once,
+    the counts, starts and freqs written once over [B, N];
+    GENERIC_OPS_PER_STEP a live step, the mix steps' extra, and
+    GENERIC_OPS_PER_COMMIT for each row a chunk touched that a later
+    chunk of its lane commits."""
     b, n = trace.shape[:2]
     n_sym = n_mix = commits = 0
     for i, k in enumerate(counts.tolist()):
@@ -939,9 +1019,11 @@ def _generic_work(trace, counts, s: int):
         n_sym += k
         n_mix += int(mix.sum())
         commits += len(np.unique(keys))
+    step, mix_step, commit = GENERIC_OPS_BEFORE
     return (40 * n_sym + 4 * b + 8 * b * n,
             GENERIC_OPS_PER_STEP * n_sym + GENERIC_OPS_PER_MIX_STEP * n_mix
-            + GENERIC_OPS_PER_COMMIT * commits)
+            + GENERIC_OPS_PER_COMMIT * commits,
+            step * n_sym + mix_step * n_mix + commit * commits)
 
 
 def _generic_compare(got, opts, device, tag: str, smi: str):
@@ -966,8 +1048,14 @@ def _generic_compare(got, opts, device, tag: str, smi: str):
         f"by {err}"
     ms = _cuda_ms(lambda: deferred_pass.deferred_pass(trace, counts, r, s,
                                                       checked=True), 10)
-    n_bytes, n_ops = _generic_work(*arrays, s)
+    n_bytes, n_ops, int_ops = _generic_work(*arrays, s)
     e = _entry(ms, plain_ms, n_bytes, n_ops, err)
+    before = _entry(ms, plain_ms, n_bytes, int_ops, err)
+    print(f"[{tag}] deferred_pass bound with FP64 divisions: "
+          f"{e['bound_ms']:.6f} ms by {e['bound_by']} ({n_ops} ops); with "
+          f"the divisions at the integer unit's ~25 (PR 6-7's count): "
+          f"{before['bound_ms']:.6f} ms by {before['bound_by']} ({int_ops} "
+          f"ops) | {smi}")
     live = int((counts > 0).sum())
     print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B | generic "
           f"lit lanes: {b} lanes, {live} live, {int(counts.sum())} steps, N "
@@ -1175,6 +1263,68 @@ def _lit_edge_compare(device, tag: str, smi: str) -> None:
           f"{smi}")
 
 
+def adaptive_edge_traces(r: int, seed: int = 14):
+    """Traces for the adaptive model pass over r rows (numpy, seeded,
+    codec/trace.py's columns): a lane whose nibble and cm rows coincide
+    on a third of its steps, among the first 8 rows (row 0 included); a
+    lane with padding steps among its steps (the reference's all-zero
+    padding row, stream -1, and stream -1 with live fields: both adapt
+    the model and emit nothing); a lane that codes two symbols in turns
+    with a fast cm row and a slow nibble row, which drives the weights to
+    their clamps; a lane whose speeds wrap entry 15 past 32767 (rows with
+    a max of 0 or below, divided as XLA divides; rows brought to a max of
+    exactly 0 first) and renorm at lim 0; an empty lane."""
+    rng = np.random.default_rng(seed)
+
+    def lane(n, mix=0.5):
+        t = np.zeros((n, 10), np.int32)
+        t[:, 0] = rng.integers(0, r, n)
+        t[:, 1] = rng.integers(0, 16, n)
+        t[:, 2] = rng.integers(0, 2, n)
+        t[:, 3] = rng.integers(0, 0x200, n)
+        t[:, 4] = rng.integers(0x400, 0x4001, n)
+        t[:, 5] = rng.random(n) < mix
+        t[:, 6] = rng.integers(0, 2, n)
+        t[:, 7] = rng.integers(0, r, n)
+        t[:, 8] = rng.integers(0, 0x200, n)
+        t[:, 9] = rng.integers(0x400, 0x4001, n)
+        return t
+
+    coincide = lane(3000)
+    coincide[:, 0] = rng.integers(0, 8, 3000)
+    coincide[:, 7] = rng.integers(0, 8, 3000)
+    coincide[::3, 7] = coincide[::3, 0]
+    padded = lane(3000)
+    pad = rng.random(3000) < 0.2
+    padded[pad, 2] = -1
+    zero = pad & (rng.random(3000) < 0.5)
+    padded[zero] = 0
+    padded[zero, 2] = -1
+    padded[zero, 4] = padded[zero, 9] = 0x4000
+    turns = lane(4000, mix=1.0)
+    turns[:, 0], turns[:, 7], turns[:, 6] = 5, 6, 1
+    turns[:, 1] = np.where(np.arange(4000) // 250 % 2 == 0, 12, 3)
+    turns[:, 3], turns[:, 4] = 1, 0x7000
+    turns[:, 8], turns[:, 9] = 0x600, 0x4000
+    wrap = lane(2000, mix=0.7)
+    wrap[:, 0] = rng.integers(0, 16, 2000)
+    wrap[:, 7] = rng.integers(0, 16, 2000)
+    wrap[:, 3] = rng.integers(0x2000, 0x8000, 2000)
+    wrap[:, 8] = rng.integers(0x2000, 0x8000, 2000)
+    wrap[:, 4] = rng.integers(0x8000, 0x10000, 2000)
+    wrap[:, 9] = rng.integers(0x8000, 0x10000, 2000)
+    wrap[::7, 4] = 0
+    # rows 100..139 brought to a max of exactly 0 (64 + 0xFFC0 wraps to
+    # 0), each then coded against, mixed with itself
+    zero_max = lane(80, mix=0.0)
+    zero_max[:, 0] = zero_max[:, 7] = 100 + np.arange(80) // 2
+    zero_max[0::2, 1], zero_max[0::2, 3], zero_max[0::2, 4] = 0, 0xFFC0, 0x7FFF
+    zero_max[0::2, 7], zero_max[0::2, 8], zero_max[0::2, 9] = 0, 0, 0x7FFF
+    zero_max[1::2, 5] = 1
+    wrap = np.concatenate([zero_max, wrap])
+    return [coincide, padded, turns, wrap, np.zeros((0, 10), np.int32)]
+
+
 def phase_mix(corpus: bytes, device, smi: str) -> dict:
     """The mix profile at full width (force_stride_value=4, quality 10,
     the whole corpus): the host-only reference, kernel 5 and then the
@@ -1270,6 +1420,387 @@ def phase_q11_mix(data: bytes, device, smi: str):
                              launches["encode_lanes"])}
 
 
+# ------------------------------------------------ the adaptive profile
+
+AD_STRIDE_BYTES = 16 << 20
+AD_Q11_BYTES = 4 << 20
+# the adaptive kernels are held against their plain versions on the main
+# path's own inputs, the plain loops cut to fit the run: the model pass
+# on the first AD_CMP_STEPS steps of every frame's trace (the pass is
+# causal, so its lanes there are an exact prefix of the whole launch's,
+# which is checked), the rANS encode on that pass's 2B lanes, the scan on
+# the main path's container (every frame, the window 2^19) with
+# max_steps cut to AD_SCAN_CMP_STEPS micro-steps (the lanes' state after
+# that many; each window up to the cut's wpos a prefix of the whole
+# launch's, checked); the entries' ms and bound are the whole launches'
+AD_CMP_STEPS = 4096
+AD_SCAN_CMP_STEPS = 6144
+AD_EDGE_MB = 1 << 12     # the scan's edge frames (flipped bits, mix lanes)
+
+
+def _ad_layout(opts) -> ModelLayout:
+    return ModelLayout(PROFILES[profile_for_options(opts)], lo_bucketed=False)
+
+
+def _ad_traces(blocks, opts):
+    """The adaptive traces of these blocks, on 8 threads."""
+    layout = _ad_layout(opts)
+    with ThreadPoolExecutor(8) as ex:
+        return list(ex.map(lambda b: adaptive.frame_trace(b, opts, layout),
+                           blocks))
+
+
+def _model_pass_work(traces):
+    """(bytes, operations) the model pass needs on these traces: each
+    step's 40 B of trace read once, each coded step's (start, freq) and
+    the counts written once; MODEL_PASS_OPS_PER_STEP a step and
+    MODEL_PASS_OPS_PER_MIX_STEP more a mixing one."""
+    n = sum(t.shape[0] for t in traces)
+    n_out = sum(int((t[:, 2] >= 0).sum()) for t in traces)
+    n_mix = sum(int((t[:, 5] != 0).sum()) for t in traces)
+    b = len(traces)
+    return (40 * n + 4 * b + 8 * n_out + 8 * b,
+            MODEL_PASS_OPS_PER_STEP * n + MODEL_PASS_OPS_PER_MIX_STEP * n_mix)
+
+
+def _model_pass_run(traces, r: int, device, plain: bool):
+    flat, n_steps = model_pass.pack_traces(traces)
+    n_lane = max(1, max(max(model_pass.lane_counts(t)) for t in traces))
+    tr = torch.from_numpy(flat).to(device)
+    ns = torch.from_numpy(n_steps).to(device)
+    fn = model_pass.model_pass_plain if plain else model_pass.model_pass
+    return lambda: fn(tr, ns, r, n_lane)
+
+
+def _model_pass_compare(traces, r: int, device, tag: str, smi: str):
+    """The model-pass kernel on the main path's traces (one launch over
+    every frame, timed by CUDA events), and against its plain version on
+    each trace's first AD_CMP_STEPS steps: equal starts, freqs and counts
+    of every lane, and the kernel's lanes there a prefix of the whole
+    launch's.  Returns (entry, the whole launch's (starts, freqs, counts),
+    the cut's)."""
+    full = _model_pass_run(traces, r, device, plain=False)
+    ms = _cuda_ms(full, 2)
+    st_f, fr_f, c_f = full()
+    cut = [t[:AD_CMP_STEPS] for t in traces]
+    (st_p, fr_p, c_p), plain_ms = _cuda_ms_once(
+        _model_pass_run(cut, r, device, plain=True))
+    kernel = _model_pass_run(cut, r, device, plain=False)
+    st_k, fr_k, c_k = kernel()
+    torch.cuda.synchronize()
+    err = _max_err([(st_k, st_p), (fr_k, fr_p), (c_k, c_p)])
+    assert err == 0, f"model_pass kernel differs from its plain version " \
+        f"by {err}"
+    n_cut = st_k.shape[1]
+    live = torch.arange(n_cut, device=device)[None] < c_k[:, None]
+    assert torch.equal(st_f[:, :n_cut][live], st_k[live]) and \
+        torch.equal(fr_f[:, :n_cut][live], fr_k[live]), \
+        "the cut's lanes are not a prefix of the whole launch's"
+    cut_ms = _cuda_ms(kernel, 10)
+    n_bytes, n_ops = _model_pass_work(traces)
+    what = (f"the first {AD_CMP_STEPS} steps of each of the main path's "
+            f"{len(traces)} frames")
+    e = dict(_entry(ms, plain_ms, n_bytes, n_ops, err), compare=what,
+             compare_ms=cut_ms)
+    n = sum(t.shape[0] for t in traces)
+    n_mix = sum(int((t[:, 5] != 0).sum()) for t in traces)
+    longest = max(t.shape[0] for t in traces)
+    print(f"[{tag}] model_pass on the main path: {len(traces)} frames, {n} "
+          f"steps ({n_mix} mixing), longest frame {longest} steps, {r} rows "
+          f"| kernel {ms:.4f} ms a launch ({ms / max(longest, 1) * 1e6:.1f} "
+          f"ns a step of the longest frame), bound {e['bound_ms']:.6f} ms by "
+          f"{e['bound_by']} ({n_bytes} B, {n_ops} ops); its real limit is "
+          f"the serial chain of a frame | on {what} ({int(c_k.sum())} "
+          f"steps coded, {2 * len(traces)} lanes) kernel == plain on "
+          f"starts, freqs, counts (max_abs_err {err}) and == the whole "
+          f"launch's prefix: kernel {cut_ms:.4f} ms, plain {plain_ms:.2f} ms "
+          f"| {cuda_build.ptxas_usage(model_pass.NAME)} | {smi}")
+    return e, (st_f, fr_f, c_f), (st_k, fr_k, c_k)
+
+
+def _model_pass_edge_compare(device, tag: str, smi: str) -> None:
+    """The model-pass kernel against its plain version on
+    adaptive_edge_traces, over the cm layout's rows (the model in shared
+    memory) and the mix layout's (the global slab)."""
+    lib = model_pass.build()
+    assert lib.dtpu_model_pass_max_shared() == model_pass.MAX_SHARED_MODEL
+    assert scan_decode.build().dtpu_scan_decode_max_shared() == \
+        model_pass.MAX_SHARED_MODEL
+    for prof in ("cm", "mix"):
+        r = scan_decode.layout_of(prof).num_rows
+        lanes = adaptive_edge_traces(r)
+        got = _model_pass_run(lanes, r, device, plain=False)()
+        want = _model_pass_run(lanes, r, device, plain=True)()
+        torch.cuda.synchronize()
+        err = _max_err(list(zip(got, want)))
+        assert err == 0, f"model_pass kernel differs from its plain " \
+            f"version on the edge traces over {r} rows by {err}"
+    print(f"[{tag}] model_pass kernel == plain on starts, freqs, counts of "
+          f"{len(lanes)} edge traces over the cm rows (model in shared "
+          f"memory) and the mix rows (global slab): coinciding rows, "
+          f"padding steps, the weight clamps, rows with a max of 0 or below "
+          f"(max_abs_err 0) | {smi}")
+
+
+def _scan_work(frames, traces, wpos):
+    """(bytes, operations) the scan needs on these frames: their streams
+    read once, their window bytes, ok and wpos written once;
+    SCAN_OPS_PER_NIBBLE a coded nibble (the encode trace's steps),
+    SCAN_OPS_PER_MIX_NIBBLE more a mixing one, SCAN_OPS_PER_COPY_STEP a
+    copy micro-step, one for each 8 bytes the literals did not write.  A
+    frame the scan flags counts the share of this its wpos reached."""
+    n_bytes = n_ops = 0.0
+    for f, t, w in zip(frames, traces, wpos.tolist()):
+        share = min(1.0, w / max(f.raw_len, 1))
+        lit = int((t[:, 2] == 1).sum()) // 2
+        n_bytes += share * (len(f.cmd) + len(f.lit) + f.raw_len) + 9
+        n_ops += share * (
+            SCAN_OPS_PER_NIBBLE * t.shape[0]
+            + SCAN_OPS_PER_MIX_NIBBLE * int((t[:, 5] != 0).sum())
+            + SCAN_OPS_PER_COPY_STEP * (-(-(f.raw_len - lit) // 8)))
+    return int(n_bytes), int(n_ops)
+
+
+def _scan_args(frames, device):
+    packed = scan_decode.pack_frames(frames)
+    return [torch.from_numpy(a).to(device) for a in packed[:5]], packed[5:]
+
+
+def _scan_compare(args, w: int, steps: int, profile: str):
+    """The scan kernel against its plain version on these packed frames
+    at `steps` micro-steps: equal windows, ok and wpos on every lane.
+    Returns (the error, the kernel's (window, ok, wpos), plain ms)."""
+    (w_p, ok_p, wp_p), plain_ms = _cuda_ms_once(
+        lambda: scan_decode.decode_scan_plain(*args, profile, w, steps))
+    got = scan_decode.decode_scan(*args, profile, w, steps)
+    torch.cuda.synchronize()
+    w_k, ok_k, wp_k = got
+    err = _max_err([(w_k, w_p), (ok_k.to(torch.int32), ok_p.to(torch.int32)),
+                    (wp_k, wp_p)])
+    assert err == 0, f"decode_scan kernel differs from its plain version " \
+        f"({profile}) by {err}"
+    return err, got, plain_ms
+
+
+def _scan_main_compare(frames, traces, profile: str, device, tag: str,
+                       smi: str) -> dict:
+    """The scan kernel on the main path's container (one launch over every
+    frame at its own max_steps, timed by CUDA events), and against its
+    plain version on the same packed frames at AD_SCAN_CMP_STEPS
+    micro-steps, each window up to the cut's wpos a prefix of the whole
+    launch's.  Returns the entry."""
+    args, (w, steps) = _scan_args(frames, device)
+    full = lambda: scan_decode.decode_scan(*args, profile, w, steps)
+    ms = _cuda_ms(full, 2)
+    w_f, ok_f, wp_f = full()
+    err, (w_k, ok_k, wp_k), plain_ms = _scan_compare(
+        args, w, AD_SCAN_CMP_STEPS, profile)
+    below = torch.arange(w, device=device)[None] < wp_k[:, None]
+    assert bool((wp_f >= wp_k).all()) and torch.equal(w_f[below],
+                                                      w_k[below]), \
+        "the cut's windows are not a prefix of the whole launch's"
+    cut_ms = _cuda_ms(
+        lambda: scan_decode.decode_scan(*args, profile, w, AD_SCAN_CMP_STEPS),
+        3)
+    n_bytes, n_ops = _scan_work(frames, traces, wp_f.cpu())
+    what = (f"every lane of the main path's container (window {w}) cut at "
+            f"{AD_SCAN_CMP_STEPS} micro-steps")
+    e = dict(_entry(ms, plain_ms, n_bytes, n_ops, err), compare=what,
+             compare_ms=cut_ms)
+    print(f"[{tag}] decode_scan on the main path's container: {len(frames)} "
+          f"lanes, window {w}, max_steps {steps}, {int(ok_f.sum())} ok | "
+          f"kernel {ms:.4f} ms a launch, bound {e['bound_ms']:.6f} ms by "
+          f"{e['bound_by']} ({n_bytes} B, {n_ops} ops); its real limit is "
+          f"the serial chain of a frame | on {what} ({int(wp_k.sum())} "
+          f"bytes written, {int(ok_k.sum())} lanes done) kernel == plain on "
+          f"windows, ok, wpos (max_abs_err {err}) and == the whole launch's "
+          f"prefix: kernel {cut_ms:.4f} ms, plain {plain_ms:.2f} ms | "
+          f"{cuda_build.ptxas_usage(scan_decode.NAME)} | {smi}")
+    return e
+
+
+def _flip(f, stream: str, seed: int):
+    """The frame with one bit flipped past the state of one stream."""
+    rng = np.random.default_rng(seed)
+    b = bytearray(getattr(f, stream))
+    b[int(rng.integers(4, len(b)))] ^= 1 << int(rng.integers(0, 8))
+    if stream == "cmd":
+        return fmt.MetablockFrame(f.raw_len, bytes(b), f.lit)
+    return fmt.MetablockFrame(f.raw_len, f.cmd, bytes(b))
+
+
+def _scan_edge_compare(data: bytes, opts, device, tag: str, smi: str):
+    """The scan kernel against its plain version, to the lanes' end, on
+    the first two frames of `data` at AD_EDGE_MB with a flipped bit in
+    the cmd and the lit stream (ok and wpos of corrupt lanes), and on two
+    mix-profile frames (the model in the global slab; the reference's
+    scan flags them at the mode header, so only its first micro-steps run
+    there)."""
+    lib = scan_decode.build()
+    assert lib.dtpu_scan_decode_n_params() == scan_decode.N_PARAMS
+    edge = dataclasses.replace(opts, metablock_size=AD_EDGE_MB)
+    head = data[:2 * AD_EDGE_MB]
+    frames = fmt.deserialize(native.compress(head, edge))[2]
+    bad = [_flip(frames[0], "cmd", 1), _flip(frames[1], "lit", 2)]
+    args, (w, steps) = _scan_args(bad, device)
+    err, (_w, ok_bad, _wp), _p = _scan_compare(
+        args, w, steps, profile_for_options(opts))
+    mix = dataclasses.replace(edge, force_stride_value=4)
+    mix_frames = fmt.deserialize(native.compress(head, mix))[2]
+    args, (w, steps) = _scan_args(mix_frames, device)
+    err_mix, (_w, ok_mix, wp_mix), _p = _scan_compare(args, w, steps, "mix")
+    print(f"[{tag}] decode_scan kernel == plain on two {AD_EDGE_MB}-byte "
+          f"frames with a flipped bit in the cmd and the lit stream (ok: "
+          f"{bool(ok_bad[0])}, {bool(ok_bad[1])}; max_abs_err {err}) and on "
+          f"{len(mix_frames)} mix-profile lanes (the model in the global "
+          f"slab; {int(ok_mix.sum())} ok, wpos {wp_mix.tolist()}: flagged "
+          f"at the mode header as the reference flags them; max_abs_err "
+          f"{err_mix}) | {smi}")
+
+
+def _adaptive_compare(data: bytes, opts, ref: bytes, device, tag: str,
+                      smi: str, edges: bool = False) -> dict:
+    """The adaptive path's kernels on the main path's inputs (its frames
+    at the options' metablock size, its container `ref`) against their
+    plain versions: the model pass, the rANS encode on its lanes, and the
+    scan (each cut as AD_CMP_STEPS and AD_SCAN_CMP_STEPS say).  With
+    `edges`, also the model pass on the edge traces and the scan on
+    _scan_edge_compare's frames.  Returns the kernels' entries."""
+    blocks = [data[o:o + opts.metablock_size]
+              for o in range(0, len(data), opts.metablock_size)]
+    profile = profile_for_options(opts)
+    r = _ad_layout(opts).num_rows
+    print(f"[{tag}] the main path's {len(blocks)} frames at metablock "
+          f"{opts.metablock_size}, profile {profile}, quality {opts.quality}")
+    traces = _ad_traces(blocks, opts)
+    mp, full, cut = _model_pass_compare(traces, r, device, tag, smi)
+    if edges:
+        _model_pass_edge_compare(device, tag, smi)
+    re_ = _rans_compare(*cut, tag, "adaptive lanes of the model pass's "
+                        f"compare (the first {AD_CMP_STEPS} steps of each "
+                        "frame)", smi, main=full)
+    del full, cut
+    frames = fmt.deserialize(ref)[2]
+    sc = _scan_main_compare(frames, traces, profile, device, tag, smi)
+    if edges:
+        _scan_edge_compare(data, opts, device, tag, smi)
+    return {"model_pass": mp, "encode_lanes": re_, "scan_decode": sc}
+
+
+def _adaptive_timed_encode(data: bytes, opts, device, tag: str,
+                           smi: str) -> dict:
+    """One more encode with each stage timed (the card synchronised at
+    each stage's end); prints the stages and the trace upload."""
+    blocks = [data[o:o + opts.metablock_size]
+              for o in range(0, len(data), opts.metablock_size)]
+    timing: dict = {}
+    t0 = time.perf_counter()
+    adaptive.compress_frames(blocks, opts, _ad_layout(opts), device,
+                             timing=timing)
+    wall = time.perf_counter() - t0
+    up = timing.pop("upload_bytes")
+    stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timing.items())
+    print(f"[{tag}] timed encode ({len(blocks)} frames, {wall:.3f} s wall): "
+          f"{stages}; trace upload {up} B ({up / timing['upload'] / 1e9:.2f}"
+          f" GB/s, pageable) | {smi}")
+    return timing
+
+
+def _host_decode_runs(frames, profile: str, data: bytes, runs: int):
+    """Best MB/s of `runs` host-only decodes of these frames after a warm
+    one: every frame through native.decode_metablock at chunk 0
+    (decode._host_decode, the path of the frames the scan flags) on the
+    decode's pool, each equal to `data`."""
+    layout = ModelLayout(PROFILES[profile], lo_bucketed=False)
+    times = []
+    for run in range(runs + 1):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(adaptive._pool_width()) as ex:
+            raw = b"".join(ex.map(
+                lambda f: decode._host_decode(f, layout, 0), frames))
+        if run:
+            times.append(time.perf_counter() - t0)
+        assert raw == data, "the host-only decode differs"
+    return len(data) / min(times) / 1e6
+
+
+def _adaptive_decode_runs(blob: bytes, data: bytes, device, tag: str,
+                          smi: str, runs: int = 3,
+                          expect_host: int | None = 0) -> int:
+    """One warm decode, then `runs` timed ones through
+    divans_tpu_torch.decompress, each equal to `data`; the scan's
+    launches and the frames by path counted over the first timed run
+    (expect_host frames on the host, when given); then one decode with
+    each stage timed, and the host-only decode of the same container
+    (_host_decode_runs) beside it.  Returns the launches."""
+    assert dt.decompress(blob) == data, f"[{tag}] warm decode differs"
+    times = []
+    for run in range(runs):
+        if run == 0:
+            scan_decode.LAUNCHES = 0
+            adaptive.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw = dt.decompress(blob)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = scan_decode.LAUNCHES
+            stats = dict(adaptive.STATS)
+        assert raw == data, f"[{tag}] decoded bytes differ"
+    assert launches == 1, f"[{tag}] {launches} scan launches, expected 1"
+    if expect_host is not None:
+        assert stats["host_frames"] == expect_host, stats
+    mbps = len(data) / min(times) / 1e6
+    timing: dict = {}
+    _w, _mb, frames, _crc, flags = fmt.deserialize(blob)
+    adaptive.decompress_frames(frames, FLAG_PROFILES[flags], device,
+                               timing=timing)
+    steps = timing.pop("max_steps")
+    stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timing.items())
+    print(f"[{tag}] decode e2e {mbps:.2f} MB/s best of {runs} after a warm "
+          f"one ({', '.join(f'{t:.3f}' for t in times)} s), output == the "
+          f"input | scan launches {launches} per decode, frames {stats} | "
+          f"timed decode: {stages}; the scan launch's max_steps {steps} | "
+          f"{smi}")
+    host = _host_decode_runs(frames, FLAG_PROFILES[flags], data, runs)
+    print(f"[{tag}] host-only decode of the same container "
+          f"(native.decode_metablock at chunk 0 on "
+          f"{adaptive._pool_width()} threads, every frame) {host:.2f} MB/s "
+          f"best of {runs}: the scan path decodes at {mbps / host:.3f} of "
+          f"its rate | {smi}")
+    return launches
+
+
+def phase_adaptive(corpus: bytes, device, smi: str, tag: str, opts,
+                   runs: int = 3, edges: bool = False,
+                   expect_host: int | None = 0) -> dict:
+    """The adaptive profile (chunk_nibbles=0) on `corpus` with `opts`:
+    the host-only reference (native.compress), the kernels against their
+    plain versions on the main path's inputs (_adaptive_compare), one
+    warm and `runs` timed encodes through divans_tpu_torch.compress (each
+    equal to the reference, both encode kernels launched once an encode),
+    one stage-timed encode, and the decode (_adaptive_decode_runs).
+    Returns each kernel's (entry, launches)."""
+    ref, t_ref = phase_profile_reference(corpus, opts, f"{tag}-reference")
+    cmp = _adaptive_compare(corpus, opts, ref, device, f"{tag}-compare",
+                            smi, edges=edges)
+    launches, mbps = _encode_runs(
+        corpus, ref, opts, {"model_pass": model_pass,
+                            "encode_lanes": rans_encode},
+        {}, f"{tag}-main", smi, runs=runs)
+    assert launches == {"model_pass": 1, "encode_lanes": 1}, launches
+    print(f"[{tag}-main] device encode {mbps:.2f} MB/s against "
+          f"native.compress {len(corpus) / t_ref / 1e6:.2f} MB/s in this run "
+          f"| {smi}")
+    _adaptive_timed_encode(corpus, opts, device, f"{tag}-main", smi)
+    dec = _adaptive_decode_runs(ref, corpus, device, f"{tag}-main", smi,
+                                runs=runs, expect_host=expect_host)
+    return {"model_pass": (cmp["model_pass"], launches["model_pass"]),
+            "encode_lanes": (cmp["encode_lanes"], launches["encode_lanes"]),
+            "scan_decode": (cmp["scan_decode"], dec)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1292,6 +1823,19 @@ def main() -> int:
     mix = phase_mix(corpus, device, smi)
     stride = phase_stride(corpus[:STRIDE_BYTES], device, smi)
     q11_mix = phase_q11_mix(corpus[:Q11_MIX_BYTES], device, smi)
+    # the adaptive profile (chunk_nibbles=0): the defaults, the stride
+    # profile, quality 11
+    ad = phase_adaptive(corpus, device, smi, "ad", dt.DivansOptions(),
+                        edges=True)
+    ad_stride = phase_adaptive(corpus[:AD_STRIDE_BYTES], device, smi,
+                               "ad-stride",
+                               dt.DivansOptions(use_context_map=False),
+                               runs=1)
+    # quality 11: the frames with dict commands leave the scan for the
+    # host (counted and printed, not expected)
+    ad_q11 = phase_adaptive(corpus[:AD_Q11_BYTES], device, smi, "ad-q11",
+                            dt.DivansOptions(quality=11), runs=1,
+                            expect_host=None)
     # one entry a kernel and path: its launches counted on that path's
     # run, its comparison made on that path's own inputs
     decode_src = "divans_tpu/codec/pallas_decode.py:182"
@@ -1299,6 +1843,9 @@ def main() -> int:
     rans_src = "divans_tpu/ans/pallas_kernels.py:57"
     cmd_src = "divans_tpu/codec/pallas_cmd_pass.py:144"
     generic_src = "divans_tpu/codec/pallas_model.py:100"
+    # the adaptive profile's device programs (XLA scans, no Pallas kernel)
+    model_src = "divans_tpu/codec/jax_engine.py:77"
+    scan_src = "divans_tpu/codec/jax_decode.py:98"
     rows = [("decode_group", lit_decode, "quality-10 decode", dec,
              dec_launches, decode_src),
             ("decode_group", lit_decode, "quality-11 decode", dec16,
@@ -1330,14 +1877,37 @@ def main() -> int:
             ("deferred_pass", deferred_pass, "stride-profile encode",
              *stride["deferred_pass"], generic_src),
             ("deferred_pass", deferred_pass, "quality-11 mix-profile encode",
-             *q11_mix["deferred_pass"], generic_src)]
+             *q11_mix["deferred_pass"], generic_src),
+            # the adaptive profile: each timed on its path's whole launch
+            # and compared on that path's inputs cut to fit the plain
+            # loop ("compare", "compare_ms": the kernel on the cut)
+            ("encode_lanes", rans_encode, "adaptive encode",
+             *ad["encode_lanes"], rans_src),
+            ("encode_lanes", rans_encode, "adaptive stride-profile encode",
+             *ad_stride["encode_lanes"], rans_src),
+            ("encode_lanes", rans_encode, "adaptive quality-11 encode",
+             *ad_q11["encode_lanes"], rans_src),
+            ("model_pass", model_pass, "adaptive encode",
+             *ad["model_pass"], model_src),
+            ("model_pass", model_pass, "adaptive stride-profile encode",
+             *ad_stride["model_pass"], model_src),
+            ("model_pass", model_pass, "adaptive quality-11 encode",
+             *ad_q11["model_pass"], model_src),
+            ("scan_decode", scan_decode, "adaptive decode",
+             *ad["scan_decode"], scan_src),
+            ("scan_decode", scan_decode, "adaptive stride-profile decode",
+             *ad_stride["scan_decode"], scan_src),
+            ("scan_decode", scan_decode, "adaptive quality-11 decode",
+             *ad_q11["scan_decode"], scan_src)]
     kernels = [{
         "name": k_name, "path": path, "route": "cuda",
         "source": f"divans_tpu_torch/csrc/{mod.NAME}.cu",
         "replaces": replaces, "launches": launches,
         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-        "bound_by": e["bound_by"], "library_ms": None}
+        "bound_by": e["bound_by"], "library_ms": None,
+        "n_bytes": e["n_bytes"], "n_ops": e["n_ops"],
+        **{k: e[k] for k in ("compare", "compare_ms") if k in e}}
         for k_name, mod, path, e, launches, replaces in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

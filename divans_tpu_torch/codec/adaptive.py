@@ -1,0 +1,190 @@
+"""The adaptive profile (chunk_nibbles=0, the default options) on the
+device: the port of the chunk-0 branches of
+divans_tpu/codec/jax_engine.compress (:964-982, :1020-1040, :1064-1072,
+:1085-1094) and jax_engine.decompress (:1185-1202).
+
+Encode (`compress_frames`):
+  1. traces: encode.frame_trace of each metablock (the mechanical trace
+     FSM, or at quality 11 the matcher's command list through it) on a
+     pool of up to 8 host threads, with the layout's lo_bucketed=False,
+     each range-checked for the kernel (model_pass.check_trace);
+  2. upload: the traces back to back on the device, 40 B a step, copied
+     frame by frame;
+  3. model pass: one launch of csrc/model_pass.cu over every frame
+     (codec/model_pass), which writes each step's (start, freq) straight
+     into its stream's lane, cmd lane 2b and lit lane 2b + 1 of frame b;
+  4. rANS: one launch of csrc/rans_encode.cu over the 2B lanes
+     (ans/rans_encode.encode_lanes, the function of the reference's
+     ans/kernels.encode_lanes);
+  5. compaction (rans_encode.compact_global) and the copy back of the
+     words the lanes emitted;
+  6. assembly: each lane's wire bytes (rans_encode.assemble_global, b""
+     for a lane that coded nothing); the lit field is the lane's bytes
+     whole (no sub-streams at chunk 0).
+The frames equal native.compress's (and the reference's).
+
+Decode (`decompress_frames`): every frame of the container packed
+(scan_decode.pack_frames), one launch of csrc/scan_decode.cu over all of
+them (codec/scan_decode), each ok lane's window[:raw_len] taken; a lane
+the scan flags (dict commands, block switches, out-of-range contexts,
+corrupt streams) is decoded again on the host by native.decode_metablock
+at chunk 0, the reference's own abstain-and-redecode design; a frame
+that native code refuses too raises decode._host_decode's
+NotImplementedError (the golden engine is not ported).  STATS counts
+the frames by path.
+"""
+from __future__ import annotations
+
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ..ans import rans_encode
+from ..container import format as fmt
+from . import decode, encode, model_pass, scan_decode
+from .layout import ModelLayout, PROFILES
+
+# frames decoded by each path of decompress_frames since the last reset:
+# "scan" the device scan, "host" the native serial decode
+STATS = {"scan_frames": 0, "host_frames": 0}
+
+
+def reset_stats() -> None:
+    STATS.update(dict.fromkeys(STATS, 0))
+
+
+def _pool_width() -> int:
+    return max(1, min(8, os.cpu_count() or 1))
+
+
+class _Clock:
+    """Seconds a stage, into `timing` when given (the card synchronised
+    at each mark, so a stage holds its device work); no-op otherwise."""
+
+    def __init__(self, timing: dict | None, dev: torch.device):
+        self.timing = timing
+        self.sync = timing is not None and dev.type == "cuda"
+        self.t = time.perf_counter()
+
+    def mark(self, stage: str) -> None:
+        if self.timing is None:
+            return
+        if self.sync:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.timing[stage] = self.timing.get(stage, 0.0) + now - self.t
+        self.t = now
+
+
+def frame_trace(raw: bytes, options, layout) -> np.ndarray:
+    """One frame's trace, range-checked for the model-pass kernel."""
+    t = encode.frame_trace(raw, options, layout)
+    model_pass.check_trace(t, layout.num_rows)
+    return t
+
+
+def _host_frame(raw: bytes, options, layout):
+    """A pool worker's share: the frame's checked trace and its (cmd,
+    lit) step counts."""
+    t = frame_trace(raw, options, layout)
+    return t, model_pass.lane_counts(t)
+
+
+@torch.inference_mode()
+def compress_frames(blocks, options, layout, device,
+                    timing: dict | None = None) -> list[fmt.MetablockFrame]:
+    """The adaptive encode of metablocks on `device` ("cuda", or "cpu"
+    for the plain versions).  `timing` (a dict) gets the seconds of each
+    stage (traces, upload, model_pass, rans, compaction, copy_back,
+    assembly) and the trace's upload bytes."""
+    dev = torch.device(device)
+    clock = _Clock(timing, dev)
+    with ThreadPoolExecutor(_pool_width()) as pool:
+        got = list(pool.map(lambda b: _host_frame(b, options, layout),
+                            blocks))
+    counts = [c for _t, c in got]
+    n_lane = max(1, max(max(c) for c in counts))
+    n_steps = np.array([t.shape[0] for t, _c in got], np.int32)
+    clock.mark("traces")
+    # the traces back to back on the device, copied frame by frame (no
+    # host copy of the whole)
+    trace_d = torch.empty((int(n_steps.sum()), model_pass.NCOLS),
+                          dtype=torch.int32, device=dev)
+    off = 0
+    for t, _c in got:
+        trace_d[off:off + t.shape[0]].copy_(torch.from_numpy(t))
+        off += t.shape[0]
+    n_steps_d = torch.from_numpy(n_steps).to(dev)
+    clock.mark("upload")
+    if timing is not None:
+        timing["upload_bytes"] = trace_d.numel() * 4 + n_steps.nbytes
+    starts, freqs, lane_n = model_pass.model_pass(trace_d, n_steps_d,
+                                                  layout.num_rows, n_lane)
+    clock.mark("model_pass")
+    words, flags, states = rans_encode.encode_lanes(starts, freqs, lane_n)
+    clock.mark("rans")
+    flat_w, header = rans_encode.compact_global(words, flags, lane_n,
+                                                states)
+    clock.mark("compaction")
+    header = header.cpu().numpy()
+    lane_n = lane_n.cpu().numpy()
+    host_counts = np.array(counts, np.int32).reshape(-1)
+    if not np.array_equal(lane_n, host_counts):
+        raise RuntimeError("the model pass's lane counts differ from the "
+                           "traces'")
+    flat_w = flat_w[:int(header[0].sum())].cpu().numpy()
+    clock.mark("copy_back")
+    lanes = rans_encode.assemble_global(flat_w, header[0], header[1],
+                                        host_counts.tolist())
+    frames = [fmt.MetablockFrame(len(blocks[i]), lanes[2 * i],
+                                 lanes[2 * i + 1])
+              for i in range(len(blocks))]
+    clock.mark("assembly")
+    return frames
+
+
+@torch.inference_mode()
+def decompress_frames(frames, profile: str, device,
+                      timing: dict | None = None) -> bytes:
+    """The adaptive decode of a container's frames on `device`: one scan
+    launch over all of them, the frames it flags on the host.  `timing`
+    (a dict) gets the seconds of packing, upload, the scan, the copy back
+    and the host decodes, and the scan's max_steps."""
+    dev = torch.device(device)
+    clock = _Clock(timing, dev)
+    cs, cw, ls, lw, raw_len, window_size, max_steps = \
+        scan_decode.pack_frames(frames)
+    clock.mark("pack")
+    args = [torch.from_numpy(a).to(dev) for a in (cs, cw, ls, lw, raw_len)]
+    clock.mark("upload")
+    window, ok, _wpos = scan_decode.decode_scan(*args, profile, window_size,
+                                                max_steps)
+    clock.mark("scan")
+    ok = ok.cpu().numpy()
+    width = int(raw_len.max()) if len(frames) else 0
+    window = window[:, :width].cpu().numpy()
+    clock.mark("copy_back")
+    if timing is not None:
+        timing["max_steps"] = max_steps
+    offsets = np.zeros(len(frames) + 1, np.int64)
+    np.cumsum(raw_len, out=offsets[1:])
+    out = np.empty(int(offsets[-1]), np.uint8)
+    flagged = []
+    for i, f in enumerate(frames):
+        if ok[i]:
+            out[offsets[i]:offsets[i + 1]] = window[i, :f.raw_len]
+        else:
+            flagged.append(i)
+    layout = ModelLayout(PROFILES[profile], lo_bucketed=False)
+    with ThreadPoolExecutor(_pool_width()) as pool:
+        for i, raw in zip(flagged, pool.map(
+                lambda i: decode._host_decode(frames[i], layout, 0),
+                flagged)):
+            out[offsets[i]:offsets[i + 1]] = np.frombuffer(raw, np.uint8)
+    clock.mark("host")
+    STATS["scan_frames"] += len(frames) - len(flagged)
+    STATS["host_frames"] += len(flagged)
+    return out.tobytes()

@@ -42,10 +42,9 @@ import torch
 
 from .. import cuda_build
 from ..probability import cdf16
-from ..probability.weights import (WEIGHT_MAX, fix_weights, floor_div,
-                                   norm_weight)
+from ..probability.weights import (NORM_WEIGHT_INIT, WEIGHT_MAX,
+                                   fix_weights, floor_div, norm_weight)
 from .deferred import MAX_RENORM_PASSES
-from .lit_model import NORM_WEIGHT_INIT
 from .lit_pass import mixer_adjustments
 
 NAME = "deferred_pass"

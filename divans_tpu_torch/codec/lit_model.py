@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from ..probability import cdf16
-from ..probability.weights import (WEIGHT_MAX, fix_weights, floor_div,
-                                   norm_weight)
+from ..probability.weights import (NORM_WEIGHT_INIT, WEIGHT_MAX,
+                                   fix_weights, floor_div, norm_weight)
 from .deferred import MAX_RENORM_PASSES
 
 N_HI = 64
@@ -30,7 +30,6 @@ N_LO = 128
 N_PLANES = 2 * N_HI + 2 * N_LO   # 384 kernel-order planes of the snapshot
 R_LIT = 385                      # rebased literal rows (row 0 unused)
 OFFSETS = (1, 65, 193, 257)      # rebased lit_hi, lit_lo, cm_first, cm_second
-NORM_WEIGHT_INIT = 1 << 14
 
 
 def kernel_perm(layout):

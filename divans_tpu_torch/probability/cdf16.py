@@ -6,10 +6,12 @@ function keeps int32 end to end so the reference's i16 wraps happen.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..constants import LOG2_SCALE
-from .weights import bit_length_pos, floor_div, wrap_i16
+from .weights import bit_length_pos, floor_div, wrap_i16, xla_floor_div
 
 CDF_INIT = tuple(range(4, 68, 4))  # [4, 8, ..., 64]
 
@@ -18,6 +20,29 @@ def cdf_init(batch_shape=(), device="cpu") -> torch.Tensor:
     """Fresh CDFs, int32[*batch_shape, 16]."""
     init = torch.tensor(CDF_INIT, dtype=torch.int32, device=device)
     return init.expand(*batch_shape, 16).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _consts(device):
+    """(arange(16), the renorm's bias [1..16]) int32 on `device`."""
+    idx = torch.arange(16, dtype=torch.int32, device=device)
+    return idx, idx + 1
+
+
+def blend(cdf: torch.Tensor, sym, inc, lim) -> torch.Tensor:
+    """Adapt `cdf` toward `sym` with Speed(inc, lim)
+    (FrequentistCDF16::blend): add inc to the entries at or above sym,
+    then, when entry 15 >= lim, renormalize (c + bias) - ((c + bias) >>
+    2), with the reference's i16 wraps.  sym, inc, lim: int32 scalars or
+    tensors shaped like the CDFs' batch dims."""
+    i32 = dict(dtype=torch.int32, device=cdf.device)
+    sym, inc, lim = (torch.as_tensor(x, **i32)[..., None]
+                     for x in (sym, inc, lim))
+    idx, bias = _consts(cdf.device)
+    c = wrap_i16(cdf + (idx >= sym) * inc)
+    cb = wrap_i16(c + bias)
+    renormed = wrap_i16(cb - (cb >> 2))
+    return torch.where(c[..., 15:16] >= lim, renormed, c)
 
 
 def average(cdf_a: torch.Tensor, cdf_b: torch.Tensor, mix_rate) -> torch.Tensor:
@@ -65,6 +90,19 @@ def sym_to_start_freq(cdf: torch.Tensor, sym: torch.Tensor):
     bounds = torch.gather(grid, -1, torch.stack([sym, sym + 1], -1).long())
     start = bounds[..., 0] + 1
     return start, bounds[..., 1] - start
+
+
+def sym_to_start_freq_xla(cdf: torch.Tensor, sym: torch.Tensor):
+    """sym_to_start_freq as the reference's XLA programs compute it on
+    any row, a wrapped one included: the quotients floor(c << 15 / max)
+    with XLA's integer division (a max of 0 or below divides as
+    weights.xla_floor_div says), and the sym == 0 term 0 whatever the
+    max.  Equal to sym_to_start_freq on every row whose max is >= 1."""
+    c = torch.gather(cdf, -1, torch.stack(
+        [torch.clamp(sym - 1, min=0), sym], -1).long())
+    r = xla_floor_div(c << LOG2_SCALE, cdf[..., 15:16])
+    r_prev = torch.where(sym > 0, r[..., 0], 0)
+    return r_prev + 1, r[..., 1] - r_prev - 1
 
 
 def offset_to_sym(cdf: torch.Tensor, cdf_offset: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,7 @@ from divans_tpu.container import format as jfmt
 from divans_tpu.options import DivansOptions as JOptions
 
 import divans_tpu_torch as port
-from divans_tpu_torch.codec import decode
+from divans_tpu_torch.codec import adaptive, decode
 from divans_tpu_torch.container.format import CorruptContainer
 from divans_tpu_torch.errors import CodedError
 
@@ -80,9 +80,14 @@ def test_empty_input_roundtrips():
 
 
 def test_adaptive_container_is_not_ported():
-    blob = jnative.compress(_corpus(5000, seed=6), JOptions())
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        _decode(blob)
+    """A container of the reference's default options (the adaptive
+    profile) once raised here; it now decodes through codec/adaptive (the
+    scan, its plain version on the CPU), no frame on the host."""
+    data = _corpus(5000, seed=6)
+    blob = jnative.compress(data, JOptions())
+    adaptive.reset_stats()
+    assert _decode(blob) == data
+    assert adaptive.STATS == {"scan_frames": 1, "host_frames": 0}
 
 
 def test_corrupt_crc_raises():

@@ -152,9 +152,14 @@ def test_without_cuda_raises(monkeypatch):
 
 
 def test_adaptive_profile_is_not_ported():
-    with pytest.raises(NotImplementedError, match="adaptive profile"):
-        port.compress(b"abc" * 100, port.DivansOptions(chunk_nibbles=0),
-                      device="cpu")
+    """The adaptive profile (chunk_nibbles=0) once raised here; it now
+    encodes through codec/adaptive (the per-nibble model pass and the
+    rANS encode, plain versions on the CPU) to the reference's bytes.
+    tests/test_torch_adaptive_e2e.py holds the rest of it."""
+    data = b"abc" * 100
+    assert port.compress(data, port.DivansOptions(chunk_nibbles=0),
+                         device="cpu") == \
+        jnative.compress(data, JOptions(chunk_nibbles=0))
 
 
 # ------------------------------------------------------------ quality 11

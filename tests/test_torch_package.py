@@ -14,7 +14,8 @@ import torch
 import divans_tpu_torch
 from divans_tpu_torch import cuda_build
 from divans_tpu_torch.ans import rans_encode
-from divans_tpu_torch.codec import cmd_pass, deferred_pass, lit_decode, lit_pass
+from divans_tpu_torch.codec import (cmd_pass, deferred_pass, lit_decode,
+                                    lit_pass, model_pass, scan_decode)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(glob.glob(os.path.join(REPO, "divans_tpu_torch", "**",
@@ -81,7 +82,13 @@ def _meta(shape, dtype):
                               _meta((1,), torch.int32), 64),
     lambda: deferred_pass.deferred_pass(_meta((1, 256, 10), torch.int32),
                                         _meta((1,), torch.int32), 385, 256),
-], ids=["lit_decode", "lit_pass", "rans_encode", "cmd_pass", "deferred_pass"])
+    lambda: model_pass.model_pass(_meta((16, 10), torch.int32),
+                                  _meta((1,), torch.int32), 2379, 16),
+    lambda: scan_decode.decode_scan(
+        *[_meta(s, torch.int32) for s in ((1,), (1, 16), (1,), (1, 16),
+                                          (1,))], "cm", 16, 1024),
+], ids=["lit_decode", "lit_pass", "rans_encode", "cmd_pass", "deferred_pass",
+        "model_pass", "scan_decode"])
 def test_kernel_wrapper_rejects_other_devices(call):
     """Each wrapper takes the plain version only for CPU tensors; any
     other device is the kernel's or an error, never a silent fallback."""

@@ -1,0 +1,195 @@
+"""The adaptive profile's decode scan of the port (codec/scan_decode)
+against the JAX package's: pack_frames against jax_engine.pack_frames,
+decode_scan_plain against jax_decode.decode_scan (the reference's XLA
+while_loop) on containers of the reference's native.compress (cm,
+quality 11 with dict commands, stride, mix), on test_jax_decode.py's edge
+inputs (one byte, runs, bytes(range(140)), random bytes), on corrupt
+streams and on lanes cut short by a small max_steps.  Window, ok and
+wpos must be equal on every lane, corrupt ones included.  Each profile's
+frames go through the reference in one batch, so it compiles once a
+batch shape."""
+import glob
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from divans_tpu import native as jnative
+from divans_tpu.codec import jax_decode, jax_engine
+from divans_tpu.container import format as jfmt
+from divans_tpu.ir import matcher as jmatcher
+from divans_tpu.options import DivansOptions as JOptions
+
+from divans_tpu_torch.codec import scan_decode
+from divans_tpu_torch.container import format as fmt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MB = 4096
+
+
+def _text(n: int, seed: int) -> bytes:
+    files = sorted(glob.glob(os.path.join(REPO, "divans_tpu", "**", "*.py"),
+                             recursive=True))
+    text = b"".join(open(f, "rb").read() for f in files)
+    start = int(np.random.default_rng(seed).integers(0, len(text) - n))
+    return text[start:start + n]
+
+
+def _frames(data: bytes, **kw):
+    blob = jnative.compress(data, JOptions(metablock_size=MB, **kw))
+    return [fmt.MetablockFrame(f.raw_len, f.cmd, f.lit)
+            for f in jfmt.deserialize(blob)[2]]
+
+
+def _flip(f, stream: str, seed: int):
+    """The frame with one bit flipped past the state of its cmd or lit
+    stream."""
+    rng = np.random.default_rng(seed)
+    b = bytearray(getattr(f, stream))
+    b[int(rng.integers(4, len(b)))] ^= 1 << int(rng.integers(0, 8))
+    return fmt.MetablockFrame(f.raw_len, *((bytes(b), f.lit)
+                                           if stream == "cmd"
+                                           else (f.cmd, bytes(b))))
+
+
+def _both(frames, profile, max_steps=None, ref_steps=None):
+    """(reference, port) outputs of the scan on these frames, each
+    (window, ok, wpos) as numpy arrays; the reference at ref_steps
+    micro-steps when given, else at the port's."""
+    packed = scan_decode.pack_frames(frames)
+    w, steps = packed[5:]
+    steps = steps if max_steps is None else max_steps
+    ref = jax_decode.decode_scan(*(jnp.asarray(a) for a in packed[:5]),
+                                 profile, w, ref_steps or steps)
+    got = scan_decode.decode_scan(*(torch.from_numpy(a)
+                                    for a in packed[:5]), profile, w, steps)
+    return ([np.asarray(a) for a in ref], [a.numpy() for a in got])
+
+
+def _assert_equal(ref, got):
+    for name, r, g in zip(("window", "ok", "wpos"), ref, got):
+        np.testing.assert_array_equal(g, r, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def dictionary_index():
+    """The reference's dictionary index, built once single-threaded (its
+    build is not guarded by a lock)."""
+    jmatcher._dict_flat_index()
+
+
+@pytest.fixture(scope="module")
+def cm_batch(dictionary_index):
+    """(frames, data of each clean frame or None): multiblock text with a
+    binary tail, quality 11 (dict commands), a mixing variant, the edge
+    inputs, and two frames with a flipped bit in a cmd and a lit
+    stream."""
+    rng = np.random.default_rng(7)
+    text = _text(2 * MB, seed=1) + rng.integers(
+        0, 256, 600, dtype=np.uint8).tobytes()
+    q11 = _text(MB, seed=2)
+    pieces = [(text, {}), (q11, dict(quality=11)),
+              (_text(1500, seed=3), dict(dynamic_context_mixing=2)),
+              (b"A", {}), (b"@" * 5000, {}), (b"abcd" * 2000, {}),
+              (bytes(range(140)), {}),
+              (rng.integers(0, 256, 2048, dtype=np.uint8).tobytes(), {})]
+    frames, raws = [], []
+    for data, kw in pieces:
+        got = _frames(data, **kw)
+        frames += got
+        raws += [data[o:o + MB] for o in range(0, len(data), MB)]
+    assert len(raws) == len(frames)
+    frames += [_flip(frames[0], "cmd", 1), _flip(frames[1], "lit", 2)]
+    raws += [None, None]
+    return frames, raws
+
+
+def test_pack_frames_matches_reference(cm_batch):
+    frames, _raws = cm_batch
+    ref = jax_engine.pack_frames(frames)
+    got = scan_decode.pack_frames(frames)
+    for r, g in zip(ref[:5], got[:5]):
+        np.testing.assert_array_equal(g, np.asarray(r))
+    assert got[5:] == ref[5:]
+
+
+@pytest.fixture(scope="module")
+def cm_scan(cm_batch):
+    """(reference, port) scans of cm_batch's frames at their own
+    max_steps."""
+    return _both(cm_batch[0], "cm")
+
+
+def test_scan_matches_reference_cm(cm_batch, cm_scan):
+    """Every lane equal to the reference's; the clean lanes other than
+    quality 11's decode their data, quality 11's frames with dict
+    commands are flagged (ok false) exactly where the reference flags
+    them, and the corrupt lanes read what the reference reads."""
+    frames, raws = cm_batch
+    ref, got = cm_scan
+    _assert_equal(ref, got)
+    window, ok, _wpos = got
+    for i, raw in enumerate(raws):
+        if ok[i] and raw is not None:
+            assert window[i, :len(raw)].tobytes() == raw
+    n_text = 2 + 1    # the text's frames (its tail is one more frame)
+    assert ok[:n_text].all() and ok[n_text + 1:-2].all()
+    assert not ok[n_text]          # quality 11: its frame has dict commands
+    assert not ok[-2]              # the cmd flip leaves the lane in error
+
+
+def test_scan_matches_reference_stride():
+    rng = np.random.default_rng(8)
+    data = _text(MB + 900, seed=4) + rng.integers(
+        0, 256, 300, dtype=np.uint8).tobytes()
+    frames = _frames(data, use_context_map=False, dynamic_context_mixing=0)
+    frames.append(_flip(frames[0], "cmd", 3))
+    ref, got = _both(frames, "stride")
+    _assert_equal(ref, got)
+    assert got[1][:-1].all()
+    assert b"".join(got[0][i, :f.raw_len].tobytes()
+                    for i, f in enumerate(frames[:-1])) == data
+
+
+def test_scan_matches_reference_mix():
+    """The mix profile (the model past the kernel's shared memory, in a
+    global slab): the reference's scan flags its frames at the prediction
+    mode's header, and the port's lanes stop there with it."""
+    rng = np.random.default_rng(9)
+    data = _text(MB, seed=5) + rng.integers(0, 256, 700,
+                                            dtype=np.uint8).tobytes()
+    frames = _frames(data, force_stride_value=4)
+    ref, got = _both(frames, "mix")
+    _assert_equal(ref, got)
+    assert len(frames) == 2 and not got[1].any()
+
+
+@pytest.mark.parametrize("max_steps", [1001, 1004])
+def test_scan_cut_by_max_steps(cm_batch, cm_scan, max_steps):
+    """A small max_steps cuts every lane after max_steps micro-steps
+    rounded up to a multiple of 4 (the reference tests its loop
+    condition every 4 over all lanes, and a stopped lane's steps are
+    no-ops): at 1001 and at 1004 the port's lanes equal the reference's
+    at 1001, and each window up to the cut's wpos is the uncut scan's
+    (window bytes below wpos are final)."""
+    frames = cm_batch[0][:3]
+    ref, got = _both(frames, "cm", max_steps=max_steps, ref_steps=1001)
+    _assert_equal(ref, got)
+    assert not got[1].any() and (got[2] > 0).all()
+    full_window, _ok, full_wpos = cm_scan[1]
+    for i, w in enumerate(got[2]):
+        assert full_wpos[i] >= w
+        assert (got[0][i, :w] == full_window[i, :w]).all()
+
+
+def test_params_match_the_kernel_layout():
+    """The kernel's parameter block: the segment offsets of the adaptive
+    layout, the profile's dimensions, then both luts."""
+    lay = scan_decode.layout_of("cm")
+    p = scan_decode.params("cm")
+    assert p.shape == (scan_decode.N_PARAMS + 2048,)
+    assert p[0] == lay.segments["cc"][0]
+    assert p[len(scan_decode.PARAM_SEGS)] == lay.num_rows == 2379
+    assert scan_decode.layout_of("stride").num_rows == 4572
