@@ -88,22 +88,26 @@ Phases, each printing its line; any failure raises and exits non-zero:
  16. the adaptive profile (chunk_nibbles=0, the default options) on the
      whole corpus (phase_adaptive): the host-only reference
      (native.compress); on the main path's own inputs the per-nibble
-     model pass (csrc/model_pass.cu: one launch over the 192 frames'
-     traces, timed, then kernel against plain on each trace's first
-     AD_CMP_STEPS steps, a prefix of the whole launch's), the rANS encode
-     on the 384 lanes of that compare (timed on the whole launch's
-     lanes) and the decode scan (csrc/scan_decode.cu: one launch over the
-     reference container's 192 frames, timed, then kernel against plain
-     on the same packed frames cut at AD_SCAN_CMP_STEPS micro-steps, each
-     window a prefix of the whole launch's); the model pass also on
+     model pass (csrc/model_pass.cu: one call over the 192 frames'
+     traces, two launches, the row chains then the weight chains, timed,
+     then kernel against plain on each trace's first AD_CMP_STEPS steps,
+     a prefix of the whole call's; one more call times each frame's
+     phases on the card's clock), the rANS encode on the 384 lanes of
+     that compare (timed on the whole launch's lanes) and the decode scan
+     (csrc/scan_decode.cu: one launch over the reference container's 192
+     frames, timed, then kernel against plain on the same packed frames
+     cut at AD_SCAN_CMP_STEPS micro-steps, each window a prefix of the
+     whole launch's; one more launch reads each frame's cmd-warp and
+     literal-warp finish and wait cycles); the model pass also on
      adaptive_edge_traces (coinciding rows, padding steps, the weight
      clamps, rows with a max of 0 or below) over the cm rows (model in
      shared memory) and the mix rows (global slab), the scan also on
      frames with a flipped bit in a cmd and a lit stream and on
      mix-profile lanes, to their end; one warm and three timed encodes
-     through divans_tpu_torch.compress (each equal to the reference, each
-     kernel launched once), one encode with each stage timed (traces,
-     upload, model pass, rANS, compaction, copy back, assembly); one
+     through divans_tpu_torch.compress (each equal to the reference, the
+     model pass's two launches and the rANS kernel's one), one encode with
+     each stage timed (traces, upload, model pass, rANS, compaction, copy
+     back, assembly); one
      warm and three timed decodes through divans_tpu_torch.decompress
      (equal to the corpus, one scan launch, no frame on the host), one
      with each stage timed, and the host-only decode of the same
@@ -1472,6 +1476,38 @@ def _model_pass_run(traces, r: int, device, plain: bool):
     return lambda: fn(tr, ns, r, n_lane)
 
 
+def _sm_clock_mhz() -> float:
+    """The card's SM clock now (nvidia-smi clocks.sm), in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def _model_pass_phases(traces, r: int, device, tag: str, smi: str) -> None:
+    """One more launch of the model pass on the main path's traces with
+    each frame's phases timed on the card (%globaltimer): the longest
+    frame's row chains, steps in parallel and weight chains, and each
+    phase's longest over the frames."""
+    flat, n_steps = model_pass.pack_traces(traces)
+    n_lane = max(1, max(max(model_pass.lane_counts(t)) for t in traces))
+    _out, ns = model_pass.model_pass_phases(
+        torch.from_numpy(flat).to(device),
+        torch.from_numpy(n_steps).to(device), r, n_lane)
+    ns = ns.cpu().numpy() / 1e6
+    i = int(np.argmax(n_steps))
+    n_mix = [int(((traces[i][:, 5] != 0) & (traces[i][:, 6] == w)).sum())
+             for w in (0, 1)]
+    print(f"[{tag}] model_pass phases (ms, the card's clock): longest frame "
+          f"({int(n_steps[i])} steps, {n_mix[0]} + {n_mix[1]} mixing steps "
+          f"of mixers 0 + 1) row chains {ns[i, 0]:.4f}, steps "
+          f"{ns[i, 1]:.4f}, weight chains {ns[i, 2]:.4f} "
+          f"({ns[i, 2] * 1e3 / max(max(n_mix), 1):.3f} us a mixing step); "
+          f"longest over the {len(traces)} frames: row chains "
+          f"{ns[:, 0].max():.4f}, steps {ns[:, 1].max():.4f}, weight chains "
+          f"{ns[:, 2].max():.4f} | {smi}")
+
+
 def _model_pass_compare(traces, r: int, device, tag: str, smi: str):
     """The model-pass kernel on the main path's traces (one launch over
     every frame, timed by CUDA events), and against its plain version on
@@ -1507,10 +1543,11 @@ def _model_pass_compare(traces, r: int, device, tag: str, smi: str):
     longest = max(t.shape[0] for t in traces)
     print(f"[{tag}] model_pass on the main path: {len(traces)} frames, {n} "
           f"steps ({n_mix} mixing), longest frame {longest} steps, {r} rows "
-          f"| kernel {ms:.4f} ms a launch ({ms / max(longest, 1) * 1e6:.1f} "
-          f"ns a step of the longest frame), bound {e['bound_ms']:.6f} ms by "
-          f"{e['bound_by']} ({n_bytes} B, {n_ops} ops); its real limit is "
-          f"the serial chain of a frame | on {what} ({int(c_k.sum())} "
+          f"| kernel {ms:.4f} ms a call of two launches "
+          f"({ms / max(longest, 1) * 1e3:.4f} us a step of the longest "
+          f"frame), bound {e['bound_ms']:.6f} ms by {e['bound_by']} "
+          f"({n_bytes} B, {n_ops} ops); its real limit is a frame's weight "
+          f"chains | on {what} ({int(c_k.sum())} "
           f"steps coded, {2 * len(traces)} lanes) kernel == plain on "
           f"starts, freqs, counts (max_abs_err {err}) and == the whole "
           f"launch's prefix: kernel {cut_ms:.4f} ms, plain {plain_ms:.2f} ms "
@@ -1602,6 +1639,7 @@ def _scan_main_compare(frames, traces, profile: str, device, tag: str,
     cut_ms = _cuda_ms(
         lambda: scan_decode.decode_scan(*args, profile, w, AD_SCAN_CMP_STEPS),
         3)
+    _scan_clocks(args, w, steps, profile, traces, ms, tag, smi)
     n_bytes, n_ops = _scan_work(frames, traces, wp_f.cpu())
     what = (f"every lane of the main path's container (window {w}) cut at "
             f"{AD_SCAN_CMP_STEPS} micro-steps")
@@ -1611,12 +1649,38 @@ def _scan_main_compare(frames, traces, profile: str, device, tag: str,
           f"lanes, window {w}, max_steps {steps}, {int(ok_f.sum())} ok | "
           f"kernel {ms:.4f} ms a launch, bound {e['bound_ms']:.6f} ms by "
           f"{e['bound_by']} ({n_bytes} B, {n_ops} ops); its real limit is "
-          f"the serial chain of a frame | on {what} ({int(wp_k.sum())} "
+          f"the slower of a frame's two warps | on {what} ({int(wp_k.sum())} "
           f"bytes written, {int(ok_k.sum())} lanes done) kernel == plain on "
           f"windows, ok, wpos (max_abs_err {err}) and == the whole launch's "
           f"prefix: kernel {cut_ms:.4f} ms, plain {plain_ms:.2f} ms | "
           f"{cuda_build.ptxas_usage(scan_decode.NAME)} | {smi}")
     return e
+
+
+def _scan_clocks(args, w: int, steps: int, profile: str, traces, ms: float,
+                 tag: str, smi: str) -> None:
+    """One more launch of the scan with each frame's two warps timed
+    (clock64 from the block's start): the cmd warp's and the literal
+    warp's finish and the cycles each waited on the other, on the frame
+    whose literal warp finished last, at the SM clock read after the
+    launch."""
+    (_w, _ok, _wp), clocks = scan_decode.decode_scan_clocks(*args, profile,
+                                                            w, steps)
+    clocks = clocks.cpu().numpy()
+    mhz = _sm_clock_mhz()
+    i = int(np.argmax(clocks[:, 1]))
+    longest = max(t.shape[0] for t in traces)
+    print(f"[{tag}] decode_scan warps on the frame whose literal warp "
+          f"finished last (frame {i}, {traces[i].shape[0]} coded nibbles): "
+          f"cmd warp {int(clocks[i, 0])} cycles ({int(clocks[i, 2])} "
+          f"waiting on the ring), literal warp {int(clocks[i, 1])} cycles "
+          f"({int(clocks[i, 3])} waiting for records; "
+          f"{clocks[i, 1] / mhz / 1e3:.4f} ms at "
+          f"{mhz:.0f} MHz, clocks.sm after the launch; "
+          f"{clocks[i, 1] / max(traces[i].shape[0], 1):.1f} cycles a coded "
+          f"nibble); the whole launch {ms:.4f} ms is "
+          f"{ms * 1e3 / max(longest, 1):.4f} us a coded nibble of the "
+          f"longest frame ({longest}) | {smi}")
 
 
 def _flip(f, stream: str, seed: int):
@@ -1674,6 +1738,7 @@ def _adaptive_compare(data: bytes, opts, ref: bytes, device, tag: str,
           f"{opts.metablock_size}, profile {profile}, quality {opts.quality}")
     traces = _ad_traces(blocks, opts)
     mp, full, cut = _model_pass_compare(traces, r, device, tag, smi)
+    _model_pass_phases(traces, r, device, tag, smi)
     if edges:
         _model_pass_edge_compare(device, tag, smi)
     re_ = _rans_compare(*cut, tag, "adaptive lanes of the model pass's "
@@ -1789,7 +1854,7 @@ def phase_adaptive(corpus: bytes, device, smi: str, tag: str, opts,
         corpus, ref, opts, {"model_pass": model_pass,
                             "encode_lanes": rans_encode},
         {}, f"{tag}-main", smi, runs=runs)
-    assert launches == {"model_pass": 1, "encode_lanes": 1}, launches
+    assert launches == {"model_pass": 2, "encode_lanes": 1}, launches
     print(f"[{tag}-main] device encode {mbps:.2f} MB/s against "
           f"native.compress {len(corpus) / t_ref / 1e6:.2f} MB/s in this run "
           f"| {smi}")

@@ -5,9 +5,10 @@ CUDA kernel, its wrapper and its plain PyTorch version.
 divans_tpu/codec/jax_engine.py:77 (`model_pass`; no Pallas kernel) with
 the host split of its output by stream (:1031-1040) folded in.  On a
 CUDA tensor it launches csrc/model_pass.cu (built by cuda_build with
-nvcc for sm_90a at first use, bound through ctypes) or raises; on a CPU
-tensor it runs `model_pass_plain`, the scan in PyTorch with every frame
-in lockstep, a loop over steps.
+nvcc for sm_90a at first use, bound through ctypes): two launches, the
+row chains with every step's weight-free work, then the weight chains;
+or it raises.  On a CPU tensor it runs `model_pass_plain`, the scan in
+PyTorch with every frame in lockstep, a loop over steps.
 
 Layout: the frames' traces back to back, trace int32 [T, 10]
 (codec/trace.py's columns: flat, value, stream, inc, lim, mix, which,
@@ -22,6 +23,7 @@ traces, for the tests.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -32,11 +34,12 @@ from ..probability.weights import NORM_WEIGHT_INIT, update
 
 NAME = "model_pass"
 _SIGNATURES = {"dtpu_model_pass": [ctypes.c_void_p] * 3
-               + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5,
+               + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 12,
                "dtpu_model_pass_max_shared": []}
 NCOLS = 10
 NOOP_LIM = 0x4000              # a padding step's lim: row 0 stays CDF_INIT
-MAX_SHARED_MODEL = 231424      # csrc/adaptive.cuh kMaxShared
+MAX_SHARED_MODEL = 196608      # csrc/adaptive.cuh kMaxShared
+MAX_ROWS = 1 << 15             # a row index takes 15 bits of a staged event
 
 # kernel launches, counted where the wrapper launches (and nowhere else)
 LAUNCHES = 0
@@ -45,6 +48,25 @@ LAUNCHES = 0
 def build():
     """csrc/model_pass.cu, compiled for sm_90a at first use, loaded."""
     return cuda_build.load(NAME, _SIGNATURES)
+
+
+DIV_TABLE_LEN = (1 << 15) + 1   # every divisor: a row's max, 1 .. 2^15
+
+
+def div_table_np() -> np.ndarray:
+    """uint32 [DIV_TABLE_LEN]: at each d >= 1, ceil(2^(31 + L) / d) with
+    L = floor(log2 d) (0 at 0), the adaptive kernels' exact floor division
+    by an int16 row max (csrc/adaptive.cuh Recip, xdiv)."""
+    out = np.zeros(DIV_TABLE_LEN, np.uint32)
+    out[1:] = [-(-(1 << (30 + d.bit_length())) // d)
+               for d in range(1, DIV_TABLE_LEN)]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def div_table(device) -> torch.Tensor:
+    """div_table_np on `device` (its bits as int32), made once a device."""
+    return torch.from_numpy(div_table_np().view(np.int32)).to(device)
 
 
 def model_in_shared(num_rows: int) -> bool:
@@ -89,15 +111,35 @@ def model_pass(trace, n_steps, num_rows: int, n_lane: int):
     """(starts, freqs, counts) of every frame's steps, split into their
     stream lanes.  n_lane: the lane width, at least the longest stream
     (columns past it are not written)."""
+    if trace.device.type == "cpu":
+        return model_pass_plain(trace, n_steps, num_rows, n_lane)
+    return _launch(trace, n_steps, num_rows, n_lane, None)
+
+
+def model_pass_phases(trace, n_steps, num_rows: int, n_lane: int):
+    """model_pass's launches on the card, with each frame's phases timed
+    on the card's clock: ((starts, freqs, counts), ns int64 [B, 3]), the
+    row chains, the steps in parallel and the longer of the two weight
+    chains (%globaltimer from each block's start)."""
+    ns = torch.zeros((n_steps.shape[0], 3), dtype=torch.int64,
+                     device=trace.device)
+    return _launch(trace, n_steps, num_rows, n_lane, ns), ns
+
+
+def _launch(trace, n_steps, num_rows: int, n_lane: int, phase_ns):
+    """The two launches (csrc/model_pass.cu: the row chains and the steps,
+    then the weight chains), each counted."""
     global LAUNCHES
     dev = trace.device
-    if dev.type == "cpu":
-        return model_pass_plain(trace, n_steps, num_rows, n_lane)
     if dev.type != "cuda":
         raise ValueError(f"model_pass runs on cuda or cpu, not {dev}")
+    if num_rows > MAX_ROWS:
+        raise ValueError(f"{num_rows} rows: the kernel takes at most "
+                         f"{MAX_ROWS}")
     b = n_steps.shape[0]
+    t = trace.shape[0]
     check = cuda_build.check
-    check("trace", trace, torch.int32, (trace.shape[0], NCOLS), dev)
+    check("trace", trace, torch.int32, (t, NCOLS), dev)
     check("n_steps", n_steps, torch.int32, (b,), dev)
     lib = build()
     starts = torch.zeros((2 * b, n_lane), dtype=torch.int32, device=dev)
@@ -110,15 +152,25 @@ def model_pass(trace, n_steps, num_rows: int, n_lane: int):
     if not model_in_shared(num_rows):
         scratch = torch.empty((b, num_rows, 16), dtype=torch.int16,
                               device=dev)
+    # work space: each step's record of the entries its coding reads, the
+    # mixing steps' inputs to the weight chains, each mixer's count
+    recs = torch.empty((max(t, 1), 6), dtype=torch.int16, device=dev)
+    elem_a = torch.empty((max(t, 1), 4), dtype=torch.int32, device=dev)
+    elem_b = torch.empty((max(t, 1), 4), dtype=torch.int32, device=dev)
+    elem_info = torch.empty((max(t, 1),), dtype=torch.int32, device=dev)
+    mix_counts = torch.empty((2 * b,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.dtpu_model_pass(
         trace.data_ptr(), offsets.data_ptr(), n_steps.data_ptr(), b,
         num_rows, n_lane, starts.data_ptr(), freqs.data_ptr(),
         counts.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        stream)
+        recs.data_ptr(), elem_a.data_ptr(), elem_b.data_ptr(),
+        elem_info.data_ptr(), mix_counts.data_ptr(),
+        div_table(dev).data_ptr(),
+        None if phase_ns is None else phase_ns.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"model_pass launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    LAUNCHES += 2
     return starts, freqs, counts
 
 

@@ -5,9 +5,11 @@ version.
 `decode_scan` is the port of the reference's XLA while_loop
 divans_tpu/codec/jax_decode.py:98 (`decode_scan`; no Pallas kernel).  On
 a CUDA tensor it launches csrc/scan_decode.cu (built by cuda_build with
-nvcc for sm_90a at first use, bound through ctypes), one thread a frame,
-or raises; on a CPU tensor it runs `decode_scan_plain`, jax_decode's
-body_once transliterated into PyTorch over all lanes in lockstep.
+nvcc for sm_90a at first use, bound through ctypes), a block of two
+warps a frame (the cmd stream's FSM on one, the literals and copies on
+the other), or raises; on a CPU tensor it runs `decode_scan_plain`,
+jax_decode's body_once transliterated into PyTorch over all lanes in
+lockstep.
 
 Inputs are `pack_frames`'s (the port of jax_engine.pack_frames): per
 frame the cmd and lit streams' u32 states as int32 [B] (two's
@@ -35,16 +37,17 @@ from ..ans.coder_np import RENORM_BITS, STATE_LOW, bytes_to_lane
 from ..probability import cdf16
 from ..probability.weights import NORM_WEIGHT_INIT, bit_length_pos, update
 from .layout import PROFILES, ModelLayout
-from .model_pass import model_in_shared
+from .model_pass import div_table, model_in_shared
 
 NAME = "scan_decode"
 _SIGNATURES = {"dtpu_scan_decode": [ctypes.c_void_p] * 2 + [ctypes.c_int]
                + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-               + [ctypes.c_void_p] * 5,
+               + [ctypes.c_void_p] * 7,
                "dtpu_scan_decode_max_shared": [],
                "dtpu_scan_decode_n_params": []}
 
+CMD_ROWS = 256     # csrc/scan_decode.cu kCmdRows: the cmd rows it caches
 SCALE_MASK = (1 << 15) - 1
 COPY_CHUNK = 8
 UNROLL = 4
@@ -161,12 +164,33 @@ def pack_frames(frames):
 def decode_scan(cmd_states, cmd_words, lit_states, lit_words, raw_len,
                 profile: str, window_size: int, max_steps: int):
     """(window uint8 [B, W], ok bool [B], wpos int32 [B]) of B frames."""
-    global LAUNCHES
     dev = raw_len.device
     if dev.type == "cpu":
         return decode_scan_plain(cmd_states, cmd_words, lit_states,
                                  lit_words, raw_len, profile, window_size,
                                  max_steps)
+    return _launch(cmd_states, cmd_words, lit_states, lit_words, raw_len,
+                   profile, window_size, max_steps, None)
+
+
+def decode_scan_clocks(cmd_states, cmd_words, lit_states, lit_words,
+                       raw_len, profile: str, window_size: int,
+                       max_steps: int):
+    """decode_scan's launch on the card, with each frame's two warps
+    timed: ((window, ok, wpos), clocks int64 [B, 4]), the cmd warp's and
+    the literal warp's finish in SM cycles (clock64) from the block's
+    start, then the cycles each waited on the other."""
+    b = raw_len.shape[0]
+    clocks = torch.zeros((b, 4), dtype=torch.int64, device=raw_len.device)
+    out = _launch(cmd_states, cmd_words, lit_states, lit_words, raw_len,
+                  profile, window_size, max_steps, clocks)
+    return out, clocks
+
+
+def _launch(cmd_states, cmd_words, lit_states, lit_words, raw_len,
+            profile: str, window_size: int, max_steps: int, clocks):
+    global LAUNCHES
+    dev = raw_len.device
     if dev.type != "cuda":
         raise ValueError(f"decode_scan runs on cuda or cpu, not {dev}")
     b = raw_len.shape[0]
@@ -183,6 +207,8 @@ def decode_scan(cmd_states, cmd_words, lit_states, lit_words, raw_len,
         if w < 1 or w & (w - 1):
             raise ValueError(f"{name} width {w} is not a power of two")
     lay = layout_of(profile)
+    if lay.segments["lit_hi"][0] > CMD_ROWS:
+        raise ValueError(f"{profile}: more cmd rows than the kernel caches")
     lib = build()
     window = torch.zeros((b, window_size), dtype=torch.uint8, device=dev)
     ok = torch.zeros((b,), dtype=torch.uint8, device=dev)
@@ -202,7 +228,9 @@ def decode_scan(cmd_states, cmd_words, lit_states, lit_words, raw_len,
         lit_states.data_ptr(), lit_words.data_ptr(), wl, raw_len.data_ptr(),
         prm.data_ptr(), lay.num_rows, max_steps, window_size, b,
         window.data_ptr(), ok.data_ptr(), wpos.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), stream)
+        None if scratch is None else scratch.data_ptr(),
+        div_table(dev).data_ptr(),
+        None if clocks is None else clocks.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"decode_scan launch failed: CUDA error {rc}")
     LAUNCHES += 1

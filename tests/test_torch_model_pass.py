@@ -7,7 +7,10 @@ the port's native.build_trace in the cm, stride and mix profiles and on
 chip_smoke.adaptive_edge_traces, the stream lanes against the
 reference's host split (jax_engine.py:1031-1040).  All bit-exact.  The
 cm traces share one padded shape, so the reference compiles once a
-profile."""
+profile.  The kernel's design (csrc/model_pass.cu: row chains, steps in
+parallel, weight chains, compaction) is emulated on the host by
+tests/adaptive_lanes.py and held to the same lanes, exactly, as is its
+table division."""
 import glob
 import os
 
@@ -20,6 +23,7 @@ from divans_tpu.codec import jax_engine
 from divans_tpu.probability import cdf16 as jcdf16
 from divans_tpu.probability import weights as jweights
 
+import adaptive_lanes
 import chip_smoke
 from divans_tpu_torch import native
 from divans_tpu_torch.codec import model_pass
@@ -207,3 +211,93 @@ def test_model_pass_empty_and_ragged_frames():
     assert counts.tolist()[:2] == [0, 0]
     assert (st[:2] == 0).all() and (fr[:2] == 1).all()
     assert int(counts[2] + counts[3]) == 50
+
+
+# ------------------------------ the kernel's row chains and weight chain
+
+def _lanes_check(traces, num_rows):
+    """tests/adaptive_lanes.py's emulation of csrc/model_pass.cu (row
+    chains over staged tiles, steps in parallel, one weight chain a mixer,
+    compaction) against model_pass_plain and jax_engine.model_pass's
+    host split, exactly.  Returns the chain steps each owner ran."""
+    flat, n_steps = model_pass.pack_traces(traces)
+    n_lane = max(1, max(max(model_pass.lane_counts(t)) for t in traces))
+    st, fr, counts, ran = adaptive_lanes.model_pass_lanes(traces, num_rows,
+                                                         n_lane)
+    ps, pf, pc = model_pass.model_pass_plain(_t(flat), _t(n_steps), num_rows,
+                                             n_lane)
+    np.testing.assert_array_equal(st, ps.numpy())
+    np.testing.assert_array_equal(fr, pf.numpy())
+    np.testing.assert_array_equal(counts, pc.numpy())
+    js, jf = (np.asarray(a) for a in jax_engine.model_pass(
+        jnp.asarray(_padded(traces)), num_rows))
+    for i, t in enumerate(traces):
+        for sid in (0, 1):
+            m = t[:, 2] == sid
+            k = int(m.sum())
+            np.testing.assert_array_equal(st[2 * i + sid, :k],
+                                          js[i, :t.shape[0]][m])
+            np.testing.assert_array_equal(fr[2 * i + sid, :k],
+                                          jf[i, :t.shape[0]][m])
+    return ran
+
+
+@pytest.mark.parametrize("profile,kw", [
+    ("cm", {}), ("cm", dict(dynamic_context_mixing=0)),
+    ("stride", dict(use_context_map=False)),
+    ("mix", dict(force_stride_value=4))],
+    ids=["cm", "cm-dcm0", "stride", "mix"])
+def test_row_chains_match_reference(profile, kw):
+    """The kernel's decomposition on frame traces of native.build_trace.
+    Without mixing, every step's cm blend goes to the frozen row 0 with
+    inc 0 and no step reads it: the chains skip all of them, so they run
+    exactly one event a step."""
+    layout = ModelLayout(PROFILES[profile], lo_bucketed=False)
+    opts = DivansOptions(**kw)
+    data = _data(3 * 1500, seed=10 + len(kw))
+    traces = [native.build_trace(data[o:o + 1500], opts, layout)
+              for o in range(0, len(data), 1500)]
+    ran = _lanes_check(traces, layout.num_rows)
+    n_mix = [int((t[:, 5] != 0).sum()) for t in traces]
+    if not any(n_mix):
+        assert ran.sum(1).tolist() == [t.shape[0] for t in traces]
+
+
+@pytest.mark.parametrize("profile", ["cm", "mix"])
+def test_row_chains_edge_traces(profile):
+    """chip_smoke.adaptive_edge_traces over the cm rows (the model in
+    shared memory) and the mix rows (the global slab): nibble and cm rows
+    that coincide (one event, the cm blend's, recording both reads),
+    padding steps, the weight clamps, rows with a max of 0 or below."""
+    r = ModelLayout(PROFILES[profile], lo_bucketed=False).num_rows
+    traces = chip_smoke.adaptive_edge_traces(r)
+    assert (traces[0][:, 0] == traces[0][:, 7]).any()
+    _lanes_check(traces, r)
+
+
+def test_div_table_is_exact():
+    """csrc/adaptive.cuh's xdiv: floor(a / b) by the table entry m =
+    ceil(2^(31 + L) / |b|), L = floor(log2 |b|), one 32 x 32 -> 64-bit
+    multiply and a shift, for every divisor an int16 row max can be (0
+    and negatives as XLA divides) and numerators c << 15 of every sign
+    and size, equals Python's floor division."""
+    table = [int(x) for x in model_pass.div_table_np()]
+    assert all(1 << 30 < m <= 1 << 31 for m in table[1:])
+    rng = np.random.default_rng(15)
+
+    def xdiv(a, b):
+        if b == 0:
+            return -1 if a == 0 else -2
+        d, x = abs(b), (-a if b < 0 else a)
+        s = x if x >= 0 else ~x
+        q = (s * table[d]) >> (30 + d.bit_length())
+        return q if x >= 0 else ~q
+
+    for b in range(-(1 << 15), 1 << 15):
+        cs = [-(1 << 15), -1, 0, 1, (1 << 15) - 1,
+              int(rng.integers(-(1 << 15), 1 << 15))]
+        for c in cs + [b, b - 1, b + 1]:
+            a = (c << 15) if -(1 << 15) <= c <= 1 << 15 else 0
+            want = (-1 if a == 0 else -2) if b == 0 else a // b
+            assert xdiv(a, b) == want, (a, b)
+

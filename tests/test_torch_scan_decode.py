@@ -7,7 +7,11 @@ inputs (one byte, runs, bytes(range(140)), random bytes), on corrupt
 streams and on lanes cut short by a small max_steps.  Window, ok and
 wpos must be equal on every lane, corrupt ones included.  Each profile's
 frames go through the reference in one batch, so it compiles once a
-batch shape."""
+batch shape.  The kernel's two-warp design (csrc/scan_decode.cu: the cmd
+warp's records, the literal warp's warp-wide rows) is emulated on the
+host by tests/adaptive_lanes.py and held to the same outputs, exactly:
+at each lane's end, cut at 1001 and 1004 micro-steps, cut inside a
+literal run and inside a copy, on flipped bits, stride and mix lanes."""
 import glob
 import os
 
@@ -22,6 +26,7 @@ from divans_tpu.container import format as jfmt
 from divans_tpu.ir import matcher as jmatcher
 from divans_tpu.options import DivansOptions as JOptions
 
+import adaptive_lanes
 from divans_tpu_torch.codec import scan_decode
 from divans_tpu_torch.container import format as fmt
 
@@ -193,3 +198,103 @@ def test_params_match_the_kernel_layout():
     assert p[0] == lay.segments["cc"][0]
     assert p[len(scan_decode.PARAM_SEGS)] == lay.num_rows == 2379
     assert scan_decode.layout_of("stride").num_rows == 4572
+
+
+# ---------------------------------------- the kernel's two-warp design
+
+def _lanes(frames, profile, max_steps=None):
+    """tests/adaptive_lanes.py's emulation of csrc/scan_decode.cu (the cmd
+    warp's records, cut where the lane stops; the literal warp's
+    warp-wide rows) on these frames."""
+    packed = scan_decode.pack_frames(frames)
+    steps = packed[6] if max_steps is None else max_steps
+    return adaptive_lanes.scan_lanes(*packed[:5], profile, packed[5], steps)
+
+
+def _plain(frames, profile, max_steps):
+    packed = scan_decode.pack_frames(frames)
+    got = scan_decode.decode_scan_plain(
+        *(torch.from_numpy(a) for a in packed[:5]), profile, packed[5],
+        max_steps)
+    return [a.numpy() for a in got]
+
+
+def test_two_warp_scan_matches_reference(cm_batch, cm_scan):
+    """The kernel's decomposition on cm_batch to each lane's end (text,
+    quality 11 flagged at its dict command, a mixing variant, the edge
+    inputs, a flipped bit in a cmd and a lit stream) equals the
+    reference's scan exactly: window, ok, wpos."""
+    _assert_equal(cm_scan[0], _lanes(cm_batch[0], "cm"))
+
+
+@pytest.mark.parametrize("max_steps", [1001, 1004])
+def test_two_warp_scan_cut_by_max_steps(cm_batch, max_steps):
+    """The cut after (max_steps + 3) & ~3 micro-steps: each record the
+    cmd warp pushes is cut to the bytes the serial FSM writes before it,
+    so ok, wpos and the window equal the plain scan's."""
+    frames = cm_batch[0][:3]
+    _assert_equal(_plain(frames, "cm", max_steps),
+                  _lanes(frames, "cm", max_steps))
+
+
+def _cut_inside(frame, profile, kind: str, odd: bool):
+    """A micro-step cut (a multiple of 4) inside a literal run or a copy
+    of the frame: at an odd offset from a literal run's first micro-step
+    (between a byte's two nibbles) or an even one (between bytes), or
+    after a copy's first chunk and before its last."""
+    packed = scan_decode.pack_frames([frame])
+    recs = adaptive_lanes.cmd_records(packed[0], packed[1], packed[4],
+                                      profile, 0, packed[6])
+    for rec in recs:
+        if rec[0] != kind or rec[-1] < 400:   # past the frame's first runs
+            continue
+        if kind == "lit":
+            n, m0 = rec[1], rec[2]
+            last = m0 + 2 * n
+        else:
+            n, dist, m0 = rec[1], rec[2], rec[3]
+            last = m0 + -(-n // min(scan_decode.COPY_CHUNK, dist))
+        for cut in range((m0 // 4 + 1) * 4, last, 4):
+            if kind == "copy" or (cut - m0) % 2 == odd:
+                return cut
+    raise AssertionError(f"no {kind} run to cut in the frame")
+
+
+@pytest.mark.parametrize("kind,odd", [("lit", True), ("lit", False),
+                                      ("copy", False)],
+                         ids=["lit-between-nibbles", "lit-between-bytes",
+                              "copy"])
+def test_two_warp_scan_cut_inside_a_run(cm_batch, kind, odd):
+    """A cut that falls inside a literal run (between a byte's nibbles
+    or between bytes) or inside a copy: the literal warp stops at exactly
+    the micro-step the serial FSM would, the lane's wpos is the FSM's."""
+    frame = cm_batch[0][0]
+    cut = _cut_inside(frame, "cm", kind, odd)
+    got = _lanes([frame], "cm", cut)
+    _assert_equal(_plain([frame], "cm", cut), got)
+    assert not got[1][0] and 0 < got[2][0] < frame.raw_len
+
+
+def test_two_warp_scan_flipped_bits(cm_batch):
+    """Frames with a flipped bit in the cmd or the lit stream (errors at
+    raw_len, past it and mid-copy; lanes that read garbage to the end):
+    every lane equal to the plain scan's."""
+    frames = [_flip(cm_batch[0][i % 3], "cmd" if i % 2 else "lit", 10 + i)
+              for i in range(6)]
+    steps = scan_decode.pack_frames(frames)[6]
+    _assert_equal(_plain(frames, "cm", steps), _lanes(frames, "cm"))
+
+
+def test_two_warp_scan_stride_and_mix():
+    """The stride profile's literal rows (the previous byte picks them)
+    cut at 3001 micro-steps, and mix-profile lanes (the model in the
+    global slab; flagged at the prediction mode's header)."""
+    data = _text(MB, seed=6)
+    stride = _frames(data, use_context_map=False, dynamic_context_mixing=0)
+    _assert_equal(_plain(stride, "stride", 3001),
+                  _lanes(stride, "stride", 3001))
+    mix = _frames(data, force_stride_value=4)
+    steps = scan_decode.pack_frames(mix)[6]
+    got = _lanes(mix, "mix")
+    _assert_equal(_plain(mix, "mix", steps), got)
+    assert not got[1].any()
