@@ -115,7 +115,41 @@ Phases, each printing its line; any failure raises and exits non-zero:
  17. the same in the stride profile (use_context_map=False) on the first
      16 MiB (64 frames), one timed run each way;
  18. the same at quality 11 on the first 4 MiB (16 frames): the frames
-     holding dict commands leave the scan for the host, counted.
+     holding dict commands leave the scan for the host, counted;
+ 19. detection (stride_detection_quality=1, speed_detection_quality=1,
+     chunk 256) on a 16 MiB record corpus made from the seed (int16
+     random walks on four channels): the detected stride (> 1) and
+     speeds printed; the host-only reference (native.compress); on the
+     first batch of the uniform lanes (the detected options' command
+     lists) the cmd pass, the generic pass on the mix profile's
+     literals and the rANS encode on both against their plain versions
+     (_deferred_compare: the rANS encode on each lane's first
+     RANS_CMP_STEPS steps, timed on the whole lanes); one warm and one
+     timed encode equal to the reference; one round trip (on the host,
+     the mix profile);
+ 20. the same options at chunk 0 on the same corpus: the adaptive
+     kernels on the path's inputs (_adaptive_compare cut at
+     OPT_AD_CMP_STEPS and OPT_SCAN_CMP_STEPS), one timed encode, one
+     round trip (the scan flags the mix frames to the host, counted);
+ 21. speed detection at chunk 256 on the corpus's first 16 MiB (stride
+     1 keeps the cm profile): the cmd pass, the lit pass at the detected
+     speeds and the rANS encode on the first batch, the decode kernel on
+     the container's first lane group cut at DEC_CMP_CHUNKS chunks (the
+     bytes a prefix of the whole launch's), one timed encode, one round
+     trip through the decode kernel;
+ 22. the IR optimizer at quality 10: level 1 on the first 4 MiB, level 2
+     on the first 256 KiB, each at chunk 256 (as phase 21) and at chunk
+     0 (as phase 20);
+ 23. quality 11 without the context map at chunk 256 on the first 512 KiB
+     (the Python trace FSM, the cmd pass and the generic pass): the
+     host-only reference is the golden engine's; one timed encode, one
+     round trip (on the host);
+ 24. the host options, each on 256 KiB: block split (text then
+     records), prior-bitmask masks (records), context-map clustering at
+     chunk 0 and 256, external probabilities made from the seed, and
+     streamed frames: compress equal to the host-only reference
+     (native.compress, else the golden engine), decompress on the card,
+     the frames by path (scan, literal kernel, native, golden) printed.
 Each path's launches are counted with the counts set to 0 just before
 its run.  Then one JSON line with the kernels' numbers, one entry for
 each kernel and path (the kernel's launches on that path, its
@@ -140,7 +174,7 @@ import numpy as np
 import torch
 
 import divans_tpu_torch as dt
-from divans_tpu_torch import cuda_build, native
+from divans_tpu_torch import api, cuda_build, native
 from divans_tpu_torch.ans import rans_encode
 from divans_tpu_torch.codec import (adaptive, cmd_pass, decode,
                                     deferred_pass, encode, lit_decode,
@@ -149,6 +183,7 @@ from divans_tpu_torch.codec.deferred import SUB_LIT, cmd_chunk, flags_to_chunk
 from divans_tpu_torch.codec.layout import (FLAG_PROFILES, ModelLayout,
                                            PROFILES, profile_for_options)
 from divans_tpu_torch.container import format as fmt
+from divans_tpu_torch.ir.detect import apply_detection
 
 CORPUS_BYTES = 48 << 20
 Q11_BYTES = 16 << 20     # the quality-11 corpus: the first 16 MiB
@@ -348,10 +383,11 @@ def _layout(opts) -> ModelLayout:
 
 def _first_batch(corpus: bytes, opts):
     """The host side of the main path's first batch (the corpus's first
-    HYBRID_BATCH frames, host_frame on 8 threads)."""
+    HYBRID_BATCH frames, or all of a shorter one; host_frame on 8
+    threads)."""
     layout = _layout(opts)
-    blocks = [corpus[o:o + MB_SIZE]
-              for o in range(0, encode.HYBRID_BATCH * MB_SIZE, MB_SIZE)]
+    end = min(len(corpus), encode.HYBRID_BATCH * MB_SIZE)
+    blocks = [corpus[o:o + MB_SIZE] for o in range(0, end, MB_SIZE)]
     with ThreadPoolExecutor(8) as ex:
         return list(ex.map(
             lambda b: encode.host_frame(b, opts, layout, CHUNK), blocks))
@@ -522,15 +558,19 @@ def phase_encode_compare(corpus: bytes, device, smi: str) -> dict:
     return {"lit_pass": lp, "encode_lanes": re_}
 
 
-def _encode_runs(data: bytes, ref: bytes, opts, kernels: dict, expect: dict,
-                 tag: str, smi: str, runs: int = 3):
-    """One warm encode, then `runs` timed ones through
+def _encode_runs(data: bytes, ref: bytes, opts, kernels: dict,
+                 expect: dict | None, tag: str, smi: str, runs: int = 3,
+                 warm: bool = True):
+    """One warm encode (when `warm`), then `runs` timed ones through
     divans_tpu_torch.compress, each equal to `ref`.  The launches of
     `kernels` ({entry name: kernel module}) and encode.STATS are counted
     over the first timed run (the counts set to 0 just before it): every
     kernel must have launched and the frame counts must be `expect` (the
-    others 0).  Returns (launches, best MB/s)."""
-    assert dt.compress(data, opts) == ref, f"[{tag}] warm encode differs"
+    others 0); with expect None, no cmd stream may be coded on the host
+    and each stream's counts must sum to the frames.  Returns (launches,
+    best MB/s)."""
+    if warm:
+        assert dt.compress(data, opts) == ref, f"[{tag}] warm encode differs"
     times = []
     for run in range(runs):
         if run == 0:
@@ -548,12 +588,19 @@ def _encode_runs(data: bytes, ref: bytes, opts, kernels: dict, expect: dict,
         assert blob == ref, f"[{tag}] device encode differs from " \
             "native.compress"
     assert all(launches.values()), f"[{tag}] a kernel never ran: {launches}"
-    assert stats == _stats(**expect), stats
+    if expect is not None:
+        assert stats == _stats(**expect), stats
+    else:
+        n = len(fmt.deserialize(ref)[2])
+        assert stats["cmd_host"] == 0 and \
+            stats["cmd_device"] + stats["cmd_generic"] == n and \
+            stats["lit_device"] + stats["lit_generic"] == n, stats
     mbps = len(data) / min(times) / 1e6
-    print(f"[{tag}] encode e2e {mbps:.2f} MB/s best of {runs} after a warm "
-          f"one ({', '.join(f'{t:.3f}' for t in times)} s), output == "
-          f"native.compress | launches {launches} per encode, frames "
-          f"{stats} | {smi}")
+    print(f"[{tag}] encode e2e {mbps:.2f} MB/s best of {runs}"
+          f"{' after a warm one' if warm else ''} "
+          f"({', '.join(f'{t:.3f}' for t in times)} s), output == "
+          f"the host-only reference | launches {launches} per encode, "
+          f"frames {stats} | {smi}")
     return launches, mbps
 
 
@@ -690,20 +737,25 @@ def _group_work(queues, carry, n_steps: int, s: int):
     return n_bytes, n_ops, n_bytes_dec, lane_chunks
 
 
-def phase_compare(blob: bytes, device, tag: str, smi: str) -> dict:
+def phase_compare(blob: bytes, device, tag: str, smi: str,
+                  cut: int | None = None) -> dict:
     """The fused decode kernel against the plain group decode on the
     main path's first lane group (every lane that has a job live): equal
     bytes and an equal final carry of every lane; then one launch timed
-    back to back.  Returns the kernel's entry numbers (max_abs_err, ms,
-    plain_ms, bound)."""
+    back to back.  With `cut`, both run the group's first `cut` chunks
+    only (the chunk loop is causal: the kernel's bytes there are checked
+    a prefix of the whole launch's), and the launch is timed whole.
+    Returns the kernel's entry numbers (max_abs_err, ms, plain_ms,
+    bound)."""
     queues, n_steps, layout, chunk, n_frames, n_lanes = _first_group(blob)
     q, perm, n_pass = decode.group_inputs(queues, chunk, layout, device)
     s = chunk // 2
     live = int((q["counts"] > 0).sum())
     assert live == n_lanes, f"{live} lanes have a job, expected {n_lanes}"
+    n_cmp = n_steps if cut is None else min(cut, n_steps)
     (out_p, carry_p), plain_ms = _cuda_ms_once(
-        lambda: lit_decode.decode_group_plain(q, perm, n_pass, n_steps, s))
-    out_k, carry_k = lit_decode.decode_group(q, perm, n_pass, n_steps, s)
+        lambda: lit_decode.decode_group_plain(q, perm, n_pass, n_cmp, s))
+    out_k, carry_k = lit_decode.decode_group(q, perm, n_pass, n_cmp, s)
     torch.cuda.synchronize()
     assert set(carry_k) == set(carry_p) == set(lit_decode.CARRY)
     errs = {k: _max_err([(carry_k[k], carry_p[k])]) for k in lit_decode.CARRY}
@@ -713,11 +765,18 @@ def phase_compare(blob: bytes, device, tag: str, smi: str) -> dict:
         f"version: {errs}"
     ms = _cuda_ms(lambda: lit_decode.decode_group(q, perm, n_pass, n_steps,
                                                   s), 5)
+    if n_cmp < n_steps:
+        out_f, carry_k = lit_decode.decode_group(q, perm, n_pass, n_steps, s)
+        assert torch.equal(out_f[:, :n_cmp * s], out_k), \
+            f"[{tag}] the cut's bytes are not a prefix of the whole launch's"
     n_bytes, n_ops, n_dec, lane_chunks = _group_work(queues, carry_k,
                                                      n_steps, s)
     e = _entry(ms, plain_ms, n_bytes, n_ops, max_err)
+    if n_cmp < n_steps:
+        e["compare"] = f"the first lane group's first {n_cmp} chunks"
     print(f"[{tag}] first lane group ({n_frames} frames): {n_steps} chunks "
-          f"x {out_k.shape[0]} lanes, {live} lanes with a job, {n_dec} "
+          f"x {out_k.shape[0]} lanes (compared on {n_cmp}), {live} lanes "
+          f"with a job, {n_dec} "
           f"bytes decoded over {lane_chunks} lane-chunks, {n_pass} renorm "
           f"passes a commit | decode_group kernel == plain on the bytes and "
           f"every lane's final carry ({', '.join(lit_decode.CARRY)}; "
@@ -738,7 +797,7 @@ def phase_main(blob: bytes, corpus: bytes, device, smi: str) -> int:
     for run in range(3):
         if run == 0:
             lit_decode.LAUNCHES = 0
-            decode.STATS.update(device_frames=0, host_frames=0)
+            decode.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         raw = dt.decompress(blob)
@@ -749,7 +808,8 @@ def phase_main(blob: bytes, corpus: bytes, device, smi: str) -> int:
             stats = dict(decode.STATS)
         assert raw == corpus, "decoded bytes differ from the corpus"
     assert launches > 0, "the main path never launched the kernel"
-    assert stats == {"device_frames": n_frames, "host_frames": 0}, stats
+    assert stats == {"device_frames": n_frames, "host_frames": 0,
+                     "golden_frames": 0}, stats
     mbps = len(corpus) / min(times) / 1e6
 
     # one more decode with CUDA events around each group's launch, then
@@ -955,13 +1015,14 @@ def phase_q11_roundtrip(blob: bytes, corpus16: bytes, smi: str) -> int:
     launches of that decode."""
     n_frames = len(fmt.deserialize(blob)[2])
     lit_decode.LAUNCHES = 0
-    decode.STATS.update(device_frames=0, host_frames=0)
+    decode.reset_stats()
     t0 = time.perf_counter()
     raw = dt.decompress(blob)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     assert raw == corpus16, "quality-11 round trip differs"
-    assert decode.STATS == {"device_frames": n_frames, "host_frames": 0}, \
+    assert decode.STATS == {"device_frames": n_frames, "host_frames": 0,
+                            "golden_frames": 0}, \
         decode.STATS
     launches = lit_decode.LAUNCHES
     assert launches > 0, "the quality-11 decode never launched the kernel"
@@ -1030,16 +1091,16 @@ def _generic_work(trace, counts, s: int):
             step * n_sym + mix_step * n_mix + commit * commits)
 
 
-def _generic_compare(got, opts, device, tag: str, smi: str):
+def _generic_compare(got, opts, device, tag: str, smi: str,
+                     job: str = "lit_generic"):
     """The generic deferred pass, kernel against plain, on the batch's
-    lanes for it (its "lit_generic" job, built by batch_jobs as the main
-    path builds it); returns (entry, the kernel's starts, freqs, the
+    lanes for it (its `job`, "lit_generic" or "cmd_generic", built by
+    batch_jobs as the main path builds it); returns (entry, the kernel's starts, freqs, the
     lanes' counts).  The kernel is launched as the main path launches
     it: host_frame range-checked the lanes, so no check on the card."""
     jobs, _places = encode.batch_jobs(got, range(len(got)), _layout(opts),
                                       CHUNK)
-    (arrays, (r, s)), = [(a, p) for name, a, p in jobs
-                         if name == "lit_generic"]
+    (arrays, (r, s)), = [(a, p) for name, a, p in jobs if name == job]
     trace, counts = (torch.from_numpy(a).to(device) for a in arrays)
     b, n = trace.shape[:2]
     (st_p, fr_p), plain_ms = _cuda_ms_once(
@@ -1061,8 +1122,8 @@ def _generic_compare(got, opts, device, tag: str, smi: str):
           f"{before['bound_ms']:.6f} ms by {before['bound_by']} ({int_ops} "
           f"ops) | {smi}")
     live = int((counts > 0).sum())
-    print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B | generic "
-          f"lit lanes: {b} lanes, {live} live, {int(counts.sum())} steps, N "
+    print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B | {job} "
+          f"lanes: {b} lanes, {live} live, {int(counts.sum())} steps, N "
           f"{n}, {r} rows, chunk {s} | deferred_pass kernel == plain on "
           f"starts, freqs (max_abs_err {err}): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.2f} ms, bound {e['bound_ms']:.6f} ms by "
@@ -1355,11 +1416,12 @@ def phase_mix(corpus: bytes, device, smi: str) -> dict:
           f"{len(corpus) / t_ref / 1e6:.2f} MB/s in this run | {smi}")
     _timed_encode(corpus, ref, opts, "mix-main", smi,
                   split=("lit_generic_pass", "deferred_pass_kernel"))
-    decode.STATS.update(device_frames=0, host_frames=0)
+    decode.reset_stats()
     t0 = time.perf_counter()
     assert dt.decompress(ref) == corpus, "mix-profile round trip differs"
     wall = time.perf_counter() - t0
-    assert decode.STATS == {"device_frames": 0, "host_frames": n}, \
+    assert decode.STATS == {"device_frames": 0, "host_frames": n,
+                            "golden_frames": 0}, \
         decode.STATS
     print(f"[mix-roundtrip] decompress == the {len(corpus)}-byte corpus, "
           f"{len(corpus) / wall / 1e6:.2f} MB/s (one run, every frame on "
@@ -1508,17 +1570,18 @@ def _model_pass_phases(traces, r: int, device, tag: str, smi: str) -> None:
           f"{ns[:, 2].max():.4f} | {smi}")
 
 
-def _model_pass_compare(traces, r: int, device, tag: str, smi: str):
+def _model_pass_compare(traces, r: int, device, tag: str, smi: str,
+                        steps: int = AD_CMP_STEPS):
     """The model-pass kernel on the main path's traces (one launch over
     every frame, timed by CUDA events), and against its plain version on
-    each trace's first AD_CMP_STEPS steps: equal starts, freqs and counts
+    each trace's first `steps` steps: equal starts, freqs and counts
     of every lane, and the kernel's lanes there a prefix of the whole
     launch's.  Returns (entry, the whole launch's (starts, freqs, counts),
     the cut's)."""
     full = _model_pass_run(traces, r, device, plain=False)
     ms = _cuda_ms(full, 2)
     st_f, fr_f, c_f = full()
-    cut = [t[:AD_CMP_STEPS] for t in traces]
+    cut = [t[:steps] for t in traces]
     (st_p, fr_p, c_p), plain_ms = _cuda_ms_once(
         _model_pass_run(cut, r, device, plain=True))
     kernel = _model_pass_run(cut, r, device, plain=False)
@@ -1534,7 +1597,7 @@ def _model_pass_compare(traces, r: int, device, tag: str, smi: str):
         "the cut's lanes are not a prefix of the whole launch's"
     cut_ms = _cuda_ms(kernel, 10)
     n_bytes, n_ops = _model_pass_work(traces)
-    what = (f"the first {AD_CMP_STEPS} steps of each of the main path's "
+    what = (f"the first {steps} steps of each of the main path's "
             f"{len(traces)} frames")
     e = dict(_entry(ms, plain_ms, n_bytes, n_ops, err), compare=what,
              compare_ms=cut_ms)
@@ -1620,29 +1683,27 @@ def _scan_compare(args, w: int, steps: int, profile: str):
 
 
 def _scan_main_compare(frames, traces, profile: str, device, tag: str,
-                       smi: str) -> dict:
+                       smi: str, cut: int = AD_SCAN_CMP_STEPS) -> dict:
     """The scan kernel on the main path's container (one launch over every
     frame at its own max_steps, timed by CUDA events), and against its
-    plain version on the same packed frames at AD_SCAN_CMP_STEPS
-    micro-steps, each window up to the cut's wpos a prefix of the whole
+    plain version on the same packed frames at `cut` micro-steps, each
+    window up to the cut's wpos a prefix of the whole
     launch's.  Returns the entry."""
     args, (w, steps) = _scan_args(frames, device)
     full = lambda: scan_decode.decode_scan(*args, profile, w, steps)
     ms = _cuda_ms(full, 2)
     w_f, ok_f, wp_f = full()
-    err, (w_k, ok_k, wp_k), plain_ms = _scan_compare(
-        args, w, AD_SCAN_CMP_STEPS, profile)
+    err, (w_k, ok_k, wp_k), plain_ms = _scan_compare(args, w, cut, profile)
     below = torch.arange(w, device=device)[None] < wp_k[:, None]
     assert bool((wp_f >= wp_k).all()) and torch.equal(w_f[below],
                                                       w_k[below]), \
         "the cut's windows are not a prefix of the whole launch's"
     cut_ms = _cuda_ms(
-        lambda: scan_decode.decode_scan(*args, profile, w, AD_SCAN_CMP_STEPS),
-        3)
+        lambda: scan_decode.decode_scan(*args, profile, w, cut), 3)
     _scan_clocks(args, w, steps, profile, traces, ms, tag, smi)
     n_bytes, n_ops = _scan_work(frames, traces, wp_f.cpu())
     what = (f"every lane of the main path's container (window {w}) cut at "
-            f"{AD_SCAN_CMP_STEPS} micro-steps")
+            f"{cut} micro-steps")
     e = dict(_entry(ms, plain_ms, n_bytes, n_ops, err), compare=what,
              compare_ms=cut_ms)
     print(f"[{tag}] decode_scan on the main path's container: {len(frames)} "
@@ -1723,11 +1784,14 @@ def _scan_edge_compare(data: bytes, opts, device, tag: str, smi: str):
 
 
 def _adaptive_compare(data: bytes, opts, ref: bytes, device, tag: str,
-                      smi: str, edges: bool = False) -> dict:
+                      smi: str, edges: bool = False,
+                      steps: int = AD_CMP_STEPS,
+                      scan_steps: int = AD_SCAN_CMP_STEPS) -> dict:
     """The adaptive path's kernels on the main path's inputs (its frames
     at the options' metablock size, its container `ref`) against their
     plain versions: the model pass, the rANS encode on its lanes, and the
-    scan (each cut as AD_CMP_STEPS and AD_SCAN_CMP_STEPS say).  With
+    scan (cut at `steps` and `scan_steps`).  `opts` are resolved (no
+    detection left to run: ir/detect.apply_detection).  With
     `edges`, also the model pass on the edge traces and the scan on
     _scan_edge_compare's frames.  Returns the kernels' entries."""
     blocks = [data[o:o + opts.metablock_size]
@@ -1737,16 +1801,17 @@ def _adaptive_compare(data: bytes, opts, ref: bytes, device, tag: str,
     print(f"[{tag}] the main path's {len(blocks)} frames at metablock "
           f"{opts.metablock_size}, profile {profile}, quality {opts.quality}")
     traces = _ad_traces(blocks, opts)
-    mp, full, cut = _model_pass_compare(traces, r, device, tag, smi)
+    mp, full, cut = _model_pass_compare(traces, r, device, tag, smi, steps)
     _model_pass_phases(traces, r, device, tag, smi)
     if edges:
         _model_pass_edge_compare(device, tag, smi)
     re_ = _rans_compare(*cut, tag, "adaptive lanes of the model pass's "
-                        f"compare (the first {AD_CMP_STEPS} steps of each "
+                        f"compare (the first {steps} steps of each "
                         "frame)", smi, main=full)
     del full, cut
     frames = fmt.deserialize(ref)[2]
-    sc = _scan_main_compare(frames, traces, profile, device, tag, smi)
+    sc = _scan_main_compare(frames, traces, profile, device, tag, smi,
+                            scan_steps)
     if edges:
         _scan_edge_compare(data, opts, device, tag, smi)
     return {"model_pass": mp, "encode_lanes": re_, "scan_decode": sc}
@@ -1782,7 +1847,7 @@ def _host_decode_runs(frames, profile: str, data: bytes, runs: int):
         t0 = time.perf_counter()
         with ThreadPoolExecutor(adaptive._pool_width()) as ex:
             raw = b"".join(ex.map(
-                lambda f: decode._host_decode(f, layout, 0), frames))
+                lambda f: decode._host_decode(f, layout, 0)[0], frames))
         if run:
             times.append(time.perf_counter() - t0)
         assert raw == data, "the host-only decode differs"
@@ -1866,6 +1931,306 @@ def phase_adaptive(corpus: bytes, device, smi: str, tag: str, opts,
             "scan_decode": (cmp["scan_decode"], dec)}
 
 
+# ------------------------------------- the options beyond the defaults
+
+DETECT_BYTES = 16 << 20      # the record corpus (detection)
+SPEED_BYTES = 16 << 20       # speed detection: the text corpus's head
+OPT_BYTES = 4 << 20          # the IR optimizer at level 1
+OPT2_BYTES = 256 << 10       # level 2 (one frame): its Python actuary
+                             # takes ~4 s a frame on one core
+Q11_NOCM_BYTES = 512 << 10   # quality 11 without the context map (two
+                             # frames): the Python trace FSM ~1.5 s a frame
+HOST_OPT_BYTES = 256 << 10   # each host option (the golden engine's
+                             # encode reads ~0.1 MB/s)
+# the new paths' compares, cut to fit the plain loops (each a prefix of
+# the main path's own inputs or of its whole launch, checked): the rANS
+# encode on each lane's first RANS_CMP_STEPS steps of the batch's
+# (start, freq), the decode on the first lane group's first
+# DEC_CMP_CHUNKS chunks, the adaptive model pass and scan as
+# _adaptive_compare cuts them, at OPT_AD_CMP_STEPS and OPT_SCAN_CMP_STEPS
+RANS_CMP_STEPS = 16384
+DEC_CMP_CHUNKS = 32
+OPT_AD_CMP_STEPS = 2048
+OPT_SCAN_CMP_STEPS = 2048
+SEED = 0
+
+
+def build_records(target: int, seed: int = SEED) -> bytes:
+    """A table of fixed-width little-endian records made from the seed:
+    int16 random walks on four channels (8-byte records), the data the
+    stride profile is for (sensor samples, audio, image rows)."""
+    rng = np.random.default_rng(seed)
+    steps = rng.integers(-40, 41, (target // 8, 4), dtype=np.int64)
+    return np.cumsum(steps, axis=0).astype("<i2").tobytes()
+
+
+def _option_reference(data: bytes, opts, tag: str):
+    """The host-only container (api.host_compress: native.compress where
+    its FSM takes the options, else the golden engine) and its seconds."""
+    t0 = time.perf_counter()
+    blob = api.host_compress(data, opts)
+    t_ref = time.perf_counter() - t0
+    print(f"[{tag}] host-only reference: {len(data)} bytes -> {len(blob)} "
+          f"({len(blob) / len(data):.4f}), {len(fmt.deserialize(blob)[2])} "
+          f"frames, {t_ref:.2f} s ({len(data) / t_ref / 1e6:.2f} MB/s)")
+    return blob, t_ref
+
+
+def _resolve(data: bytes, opts, tag: str):
+    """The options with detection resolved (ir/detect.apply_detection),
+    printed."""
+    t0 = time.perf_counter()
+    res = apply_detection(data, opts)
+    spd = [(s.inc, s.lim) for s in res.literal_adaptation or ()]
+    print(f"[{tag}] detection on {len(data)} bytes "
+          f"({time.perf_counter() - t0:.2f} s): stride "
+          f"{res.force_stride_value or 1}, speeds (inc, lim) {spd or 'default'}"
+          f", profile {profile_for_options(res)}")
+    return res
+
+
+def _rans_cut_compare(st, fr, counts, tag: str, lanes: str, smi: str):
+    """_rans_compare on each lane's first RANS_CMP_STEPS steps of a model
+    pass's output, the kernel timed on the whole lanes."""
+    k = RANS_CMP_STEPS
+    cut = (st[:, :k].contiguous(), fr[:, :k].contiguous(),
+           torch.clamp(counts, max=k))
+    return _rans_compare(*cut, tag, f"{lanes}, each lane's first {k} steps",
+                         smi, main=(st, fr, counts))
+
+
+def _deferred_compare(data: bytes, res, device, tag: str, smi: str) -> dict:
+    """The uniform lanes' kernels on the path's first batch (host_frame
+    on the resolved options, batch_jobs' packing): the cmd streams'
+    pass (kernel 4, or 5 where a frame's speeds vary within a row), the
+    literals' (kernel 3, or 5 outside its envelope), each against its
+    plain version on the whole batch, then the rANS encode on both (cut
+    as _rans_cut_compare says).  Returns {kernel name: entry}, the rANS
+    encode's two launches summed."""
+    got = _first_batch(data, res)
+    print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B, profile "
+          f"{profile_for_options(res)}, quality {res.quality}")
+    out, rans = {}, []
+    if all(g.cmd_row is not None for g in got):
+        out["cmd_pass"], st, fr, n = _cmd_pass_compare(got, device, tag, smi)
+    else:
+        out["deferred_pass"], st, fr, n = _generic_compare(
+            got, res, device, tag, smi, job="cmd_generic")
+    rans.append(_rans_cut_compare(st, fr, n, tag, "cmd lanes", smi))
+    if all(g.lit_row is not None for g in got):
+        out["lit_pass"], st, fr, n = _lit_pass_compare(got, device, tag, smi)
+    else:
+        assert "deferred_pass" not in out
+        out["deferred_pass"], st, fr, n = _generic_compare(got, res, device,
+                                                           tag, smi)
+    rans.append(_rans_cut_compare(st, fr, n, tag, "lit lanes", smi))
+    out["encode_lanes"] = _sum_entries(rans)
+    return out
+
+
+def _roundtrip(blob: bytes, data: bytes, modules: dict, tag: str, smi: str,
+               options=None) -> dict:
+    """One decode through divans_tpu_torch.decompress on the card, equal
+    to `data`; the launches of `modules` counted from 0 and the frames by
+    path printed (the scan, the literal kernel, native code, the golden
+    engine).  Returns the launches."""
+    for m in modules.values():
+        m.LAUNCHES = 0
+    decode.reset_stats()
+    adaptive.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = dt.decompress(blob, options=options)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert raw == data, f"[{tag}] round trip differs"
+    launches = {k: m.LAUNCHES for k, m in modules.items()}
+    paths = {"scan": adaptive.STATS["scan_frames"],
+             "literal kernel": decode.STATS["device_frames"],
+             "native": adaptive.STATS["host_frames"]
+             + decode.STATS["host_frames"],
+             "golden": adaptive.STATS["golden_frames"]
+             + decode.STATS["golden_frames"]}
+    n = len(fmt.deserialize(blob)[2])
+    assert sum(paths.values()) == n, (paths, n)
+    print(f"[{tag}] decompress on the card == the {len(data)}-byte input, "
+          f"{len(data) / wall / 1e6:.2f} MB/s (one run, {wall:.3f} s) | "
+          f"frames: {paths} | launches {launches} | {smi}")
+    return launches
+
+
+DEFERRED_KERNELS = {"cmd_pass": cmd_pass, "lit_pass": lit_pass,
+                    "deferred_pass": deferred_pass,
+                    "encode_lanes": rans_encode}
+ADAPTIVE_KERNELS = {"model_pass": model_pass, "encode_lanes": rans_encode}
+
+
+def _deferred_option_path(data: bytes, opts, device, tag: str, smi: str,
+                          warm: bool = False, decode_cmp: bool = True,
+                          golden_ref: bool = False) -> dict:
+    """One option on the uniform lanes at chunk 256: the host-only
+    reference, the kernels on the first batch (_deferred_compare), the
+    decode kernel on the container's first lane group (cut at
+    DEC_CMP_CHUNKS; cm containers only), one timed encode through
+    divans_tpu_torch.compress (after a warm one when `warm`) equal to
+    the reference, the kernels that took the batch launched, and one
+    round trip.  Returns {kernel: (entry, launches)}."""
+    t_all = time.perf_counter()
+    res = _resolve(data, opts, f"{tag}-detect")
+    ref, t_ref = _option_reference(data, opts, f"{tag}-reference")
+    cmp = _deferred_compare(data, res, device, f"{tag}-compare", smi)
+    out = {}
+    if decode_cmp:
+        out["decode_group"] = phase_compare(ref, device, f"{tag}-dec-compare",
+                                            smi, cut=DEC_CMP_CHUNKS)
+    launches, mbps = _encode_runs(
+        data, ref, opts, {k: DEFERRED_KERNELS[k] for k in cmp}, None,
+        f"{tag}-main", smi, runs=1, warm=warm)
+    print(f"[{tag}-main] device encode {mbps:.2f} MB/s against the host-only "
+          f"reference {len(data) / t_ref / 1e6:.2f} MB/s in this run | {smi}")
+    dec = _roundtrip(ref, data, {"decode_group": lit_decode},
+                     f"{tag}-roundtrip", smi)
+    if decode_cmp:
+        assert dec["decode_group"] > 0, f"[{tag}] the decode kernel never ran"
+        out["decode_group"] = (out["decode_group"], dec["decode_group"])
+    for k, e in cmp.items():
+        out[k] = (e, launches[k])
+    print(f"[{tag}] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+    return out
+
+
+def _adaptive_option_path(data: bytes, opts, device, tag: str,
+                          smi: str) -> dict:
+    """One option at chunk 0: the host-only reference, the adaptive
+    kernels on the path's inputs (_adaptive_compare at OPT_AD_CMP_STEPS
+    and OPT_SCAN_CMP_STEPS), one timed encode through
+    divans_tpu_torch.compress equal to the reference (the model pass's
+    two launches and the rANS encode's one), and one round trip (one
+    scan launch; the frames it flags decode on the host, counted).
+    Returns {kernel: (entry, launches)}."""
+    t_all = time.perf_counter()
+    res = _resolve(data, opts, f"{tag}-detect")
+    ref, t_ref = _option_reference(data, opts, f"{tag}-reference")
+    cmp = _adaptive_compare(data, res, ref, device, f"{tag}-compare", smi,
+                            steps=OPT_AD_CMP_STEPS,
+                            scan_steps=OPT_SCAN_CMP_STEPS)
+    launches, mbps = _encode_runs(data, ref, opts, ADAPTIVE_KERNELS, {},
+                                  f"{tag}-main", smi, runs=1, warm=False)
+    assert launches == {"model_pass": 2, "encode_lanes": 1}, launches
+    print(f"[{tag}-main] device encode {mbps:.2f} MB/s against the host-only "
+          f"reference {len(data) / t_ref / 1e6:.2f} MB/s in this run | {smi}")
+    dec = _roundtrip(ref, data, {"scan_decode": scan_decode},
+                     f"{tag}-roundtrip", smi)
+    assert dec["scan_decode"] == 1, dec
+    print(f"[{tag}] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+    return {"model_pass": (cmp["model_pass"], launches["model_pass"]),
+            "encode_lanes": (cmp["encode_lanes"], launches["encode_lanes"]),
+            "scan_decode": (cmp["scan_decode"], dec["scan_decode"])}
+
+
+def phase_detect(records: bytes, device, smi: str) -> dict:
+    """Stride and speed detection on the record corpus, deferred: a
+    detected stride > 1 keeps the context map (the mix profile), so the
+    cmd streams take the cmd pass and the literals the generic pass;
+    one warm and one timed encode; the round trip decodes on the host
+    (the mix profile, as in the reference)."""
+    opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK,
+                            stride_detection_quality=1,
+                            speed_detection_quality=1)
+    res = apply_detection(records, opts)
+    assert res.force_stride_value > 1, \
+        f"detected stride {res.force_stride_value}: change the corpus"
+    return _deferred_option_path(records, opts, device, "det", smi,
+                                 warm=True, decode_cmp=False)
+
+
+def phase_detect_adaptive(records: bytes, device, smi: str) -> dict:
+    opts = dt.DivansOptions(metablock_size=MB_SIZE,
+                            stride_detection_quality=1,
+                            speed_detection_quality=1)
+    return _adaptive_option_path(records, opts, device, "det-ad", smi)
+
+
+def phase_speeds(data: bytes, device, smi: str) -> dict:
+    """Speed detection on the text corpus's head at chunk 256: stride 1
+    keeps the cm profile, so kernel 3 codes the literals at the detected
+    speeds and kernel 1 decodes them."""
+    opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK,
+                            speed_detection_quality=1)
+    return _deferred_option_path(data, opts, device, "speeds", smi)
+
+
+def phase_optimizer(corpus: bytes, device, smi: str) -> dict:
+    """The IR optimizer at levels 1 (OPT_BYTES) and 2 (OPT2_BYTES),
+    quality 10, at chunk 256 (kernels 4, 3, 2; kernel 1 on the round
+    trip) and at chunk 0 (A1 and 2; A2 on the round trip)."""
+    out = {}
+    for level, size in ((1, OPT_BYTES), (2, OPT2_BYTES)):
+        data = corpus[:size]
+        out[f"opt{level}"] = _deferred_option_path(
+            data, dt.DivansOptions(metablock_size=MB_SIZE,
+                                   chunk_nibbles=CHUNK,
+                                   divans_ir_optimizer=level),
+            device, f"opt{level}", smi)
+        out[f"opt{level}-ad"] = _adaptive_option_path(
+            data, dt.DivansOptions(metablock_size=MB_SIZE,
+                                   divans_ir_optimizer=level),
+            device, f"opt{level}-ad", smi)
+    return out
+
+
+def phase_q11_nocm(data: bytes, device, smi: str) -> dict:
+    """Quality 11 without the context map at chunk 256: the matcher's
+    command lists through the Python trace FSM (native code refuses the
+    stride layout's lists), the cmd pass on the cmd lanes, kernel 5 on
+    the literals; the host-only reference is the golden engine's; the
+    round trip decodes on the host (the stride profile)."""
+    opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK,
+                            quality=11, use_context_map=False)
+    return _deferred_option_path(data, opts, device, "q11-nocm", smi,
+                                 decode_cmp=False)
+
+
+def phase_host_options(text: bytes, records: bytes, smi: str) -> None:
+    """The options the reference keeps on the host, each on
+    HOST_OPT_BYTES: compress (the host route) equal to the host-only
+    reference (native.compress where it covers them, else the golden
+    engine), then decompress on the card (options= for ECDF), the frames
+    by path printed."""
+    half = HOST_OPT_BYTES // 2
+    mixed = text[:half] + records[:half]   # text, then records
+    rng = np.random.default_rng(SEED)
+    ecdf = rng.integers(1, 256, 8 * HOST_OPT_BYTES, dtype=np.uint8).tobytes()
+    cases = [
+        ("block-split", mixed, dict(block_split=True)),
+        ("prior-bitmask", records[:HOST_OPT_BYTES],
+         dict(prior_bitmask_detection=1)),
+        ("cmap16", text[:HOST_OPT_BYTES], dict(cmap_clustering=16)),
+        ("cmap16-c256", text[:HOST_OPT_BYTES],
+         dict(cmap_clustering=16, chunk_nibbles=CHUNK)),
+        ("ecdf", text[:HOST_OPT_BYTES], dict(external_probs=ecdf)),
+        ("streaming", text[:HOST_OPT_BYTES],
+         dict(streaming_chunk_bytes=65536))]
+    for name, data, kw in cases:
+        t_all = time.perf_counter()
+        opts = dt.DivansOptions(metablock_size=MB_SIZE, **kw)
+        ref, t_ref = _option_reference(data, opts, f"host-{name}-reference")
+        t0 = time.perf_counter()
+        blob = dt.compress(data, opts)
+        t_enc = time.perf_counter() - t0
+        assert blob == ref, f"[host-{name}] compress differs from the " \
+            "host-only reference"
+        flags = fmt.parse_header(blob)[2]
+        print(f"[host-{name}] compress == the host-only reference, "
+              f"{len(data) / t_enc / 1e6:.3f} MB/s; container profile "
+              f"{FLAG_PROFILES[flags & 3]}, chunk {flags_to_chunk(flags)}")
+        _roundtrip(blob, data, {"scan_decode": scan_decode,
+                                "decode_group": lit_decode},
+                   f"host-{name}-roundtrip", smi,
+                   options=opts if opts.external_probs else None)
+        print(f"[host-{name}] phase {time.perf_counter() - t_all:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1901,6 +2266,19 @@ def main() -> int:
     ad_q11 = phase_adaptive(corpus[:AD_Q11_BYTES], device, smi, "ad-q11",
                             dt.DivansOptions(quality=11), runs=1,
                             expect_host=None)
+    # the options beyond the defaults: detection (the record corpus),
+    # speed detection, the IR optimizer, quality 11 without the context
+    # map on the card; the host options
+    t_opts = time.perf_counter()
+    records = build_records(DETECT_BYTES)
+    det = phase_detect(records, device, smi)
+    det_ad = phase_detect_adaptive(records, device, smi)
+    speeds = phase_speeds(corpus[:SPEED_BYTES], device, smi)
+    opt = phase_optimizer(corpus, device, smi)
+    nocm = phase_q11_nocm(corpus[:Q11_NOCM_BYTES], device, smi)
+    phase_host_options(corpus, records, smi)
+    print(f"[options] the option phases took "
+          f"{time.perf_counter() - t_opts:.1f} s | {smi}")
     # one entry a kernel and path: its launches counted on that path's
     # run, its comparison made on that path's own inputs
     decode_src = "divans_tpu/codec/pallas_decode.py:182"
@@ -1964,6 +2342,34 @@ def main() -> int:
              *ad_stride["scan_decode"], scan_src),
             ("scan_decode", scan_decode, "adaptive quality-11 decode",
              *ad_q11["scan_decode"], scan_src)]
+    # the options on the card: each kernel on each new path, compared on
+    # that path's inputs (the rANS encode's cmd and lit launches summed)
+    option_paths = [
+        (det, "detected-stride encode", "detected-stride decode"),
+        (det_ad, "adaptive detected-stride encode",
+         "adaptive detected-stride decode"),
+        (speeds, "speed-detected encode", "speed-detected decode"),
+        (opt["opt1"], "IR-optimizer level-1 encode",
+         "IR-optimizer level-1 decode"),
+        (opt["opt2"], "IR-optimizer level-2 encode",
+         "IR-optimizer level-2 decode"),
+        (opt["opt1-ad"], "adaptive IR-optimizer level-1 encode",
+         "adaptive IR-optimizer level-1 decode"),
+        (opt["opt2-ad"], "adaptive IR-optimizer level-2 encode",
+         "adaptive IR-optimizer level-2 decode"),
+        (nocm, "quality-11 no-context-map encode", None)]
+    mods = {"cmd_pass": (cmd_pass, cmd_src), "lit_pass": (lit_pass, lit_src),
+            "deferred_pass": (deferred_pass, generic_src),
+            "encode_lanes": (rans_encode, rans_src),
+            "model_pass": (model_pass, model_src),
+            "decode_group": (lit_decode, decode_src),
+            "scan_decode": (scan_decode, scan_src)}
+    for got, enc_path, dec_path in option_paths:
+        for k_name, (e, launches) in got.items():
+            path = dec_path if k_name in ("decode_group", "scan_decode") \
+                else enc_path
+            rows.append((k_name, mods[k_name][0], path, e, launches,
+                         mods[k_name][1]))
     kernels = [{
         "name": k_name, "path": path, "route": "cuda",
         "source": f"divans_tpu_torch/csrc/{mod.NAME}.cu",

@@ -2,31 +2,45 @@
 
 Both run on a device: "cuda" unless the caller passes device="cpu",
 where every kernel runs its plain PyTorch version; with neither and no
-CUDA they raise.  compress is byte-identical to
-divans_tpu.native.compress on the options native.supports or
-native.supports_cmds take (native.compress is the host-only path):
-  * the adaptive profile (chunk_nibbles=0, the default) is
-    codec/adaptive.compress_frames: host traces, the per-nibble model
-    pass and the rANS encode on the card;
-  * the deferred profile (chunk_nibbles > 0) is
-    codec/encode.compress_frames: up to quality 10 the hybrid path (host
-    C++ for the trace and the cmd stream, the card for the literals), at
-    quality 11 the uniform device lanes (the card codes both streams).
+CUDA they raise.  compress is byte-identical to divans_tpu.api.compress
+under every option (billing aside), and routes each option as the
+reference does:
+  * to the card (as divans_tpu/codec/jax_engine.compress runs them):
+    the default options, stride and speed detection (resolved first by
+    ir/detect.apply_detection), the IR optimizer and quality 11, with
+    or without the context map.  The adaptive profile
+    (chunk_nibbles=0) is codec/adaptive.compress_frames: host traces,
+    the per-nibble model pass and the rANS encode on the card.  The
+    deferred profile (chunk_nibbles > 0) is codec/encode.compress_frames:
+    the hybrid path for the mechanical trace's own options (host C++
+    for the trace and the cmd stream, the card for the literals), else
+    the uniform device lanes (host command lists and traces, the card
+    codes both streams);
+  * to the host (as jax_engine.compress sends them to its golden engine):
+    block split, prior-bitmask masks, context-map clustering, external
+    probabilities (ECDF) and streamed frames.  native.compress codes
+    what its FSM covers, codec/engine_np.compress (the golden engine)
+    the rest.
 decompress takes the profile from the container's flags: adaptive
 containers decode through codec/adaptive.decompress_frames (the scan on
 the card, flagged frames on the host), deferred ones through
-codec/decode.decompress_frames.
+codec/decode.decompress_frames (the literal kernel, frames outside it on
+the host); a frame that native code refuses decodes on the golden
+engine.  A container whose flags name no adaptive profile, and an ECDF
+container (options= with external_probs, which the decoder must be
+given), decode on the golden engine whole, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
 from . import native
-from .codec import adaptive, decode, encode
+from .codec import adaptive, decode, encode, engine_np
 from .codec.deferred import chunk_to_flags, flags_to_chunk
 from .codec.layout import (FLAG_PROFILES, PROFILE_FLAGS, ModelLayout,
                            PROFILES, profile_for_options)
 from .container import format as fmt
+from .ir.detect import apply_detection
 from .options import DivansOptions
 
 
@@ -40,17 +54,32 @@ def _device(device, entry: str) -> torch.device:
     return torch.device(device)
 
 
+def host_only(options: DivansOptions) -> bool:
+    """Options whose encode the reference keeps on the host (its device
+    engine sends them to the golden engine): block split, masks,
+    clustering, ECDF, streaming."""
+    return bool(options.external_probs is not None or options.block_split
+                or options.prior_bitmask_detection or options.cmap_clustering
+                or options.streaming_chunk_bytes)
+
+
+def host_compress(data: bytes, options: DivansOptions) -> bytes:
+    """The host-only encode: native.compress where its FSM covers the
+    options, else the golden engine."""
+    out = native.compress(data, options)
+    return out if out is not None else engine_np.compress(data, options)
+
+
 def compress(data: bytes, options: DivansOptions | None = None,
              device=None) -> bytes:
     options = options or DivansOptions()
-    if not (native.supports(options) or native.supports_cmds(options)):
-        raise NotImplementedError(
-            "port compress covers the mechanical trace (quality <= 10) and "
-            "quality 11 with the context map; detection, block split, "
-            "context-map clustering, streaming and the IR optimizer are "
-            "not ported")
-    chunk = options.chunk_nibbles
     dev = _device(device, "compress")
+    if host_only(options):
+        return host_compress(data, options)
+    if (options.stride_detection_quality or options.speed_detection_quality
+            or options.force_stride_value):
+        options = apply_detection(data, options)
+    chunk = options.chunk_nibbles
     profile = profile_for_options(options)
     flags = PROFILE_FLAGS[profile] | chunk_to_flags(chunk)
     frames = []
@@ -67,13 +96,20 @@ def compress(data: bytes, options: DivansOptions | None = None,
                          native.crc32c(data), flags=flags)
 
 
-def decompress(blob: bytes, device=None) -> bytes:
+def decompress(blob: bytes, device=None,
+               options: DivansOptions | None = None) -> bytes:
     dev = _device(device, "decompress")
     _w, _mb, frames, stored_crc, flags = fmt.deserialize(blob)
+    chunk = flags_to_chunk(flags)
+    stats = decode.STATS if chunk else adaptive.STATS
+    if options is not None and options.external_probs is not None:
+        # ECDF streams need the caller's probabilities: the golden engine
+        raw = engine_np.decompress(blob, options)
+        stats["golden_frames"] += len(frames)
+        return raw
     if not frames:
         fmt.check_crc(b"", stored_crc)
         return b""
-    chunk = flags_to_chunk(flags)
     if chunk:
         layout = ModelLayout(PROFILES[FLAG_PROFILES[flags & 0b11]],
                              lo_bucketed=True)
@@ -81,10 +117,10 @@ def decompress(blob: bytes, device=None) -> bytes:
     else:
         profile = FLAG_PROFILES.get(flags)
         if profile is None:
-            raise NotImplementedError(
-                f"container flags {flags:#x} name no adaptive profile: the "
-                "reference decodes them on its golden engine, which is not "
-                "ported")
+            # flags the scan has no profile for: the golden engine
+            raw = engine_np.decompress(blob)
+            stats["golden_frames"] += len(frames)
+            return raw
         raw = adaptive.decompress_frames(frames, profile, dev)
     fmt.check_crc(raw, stored_crc)
     return raw

@@ -5,7 +5,8 @@ divans_tpu/codec/jax_engine.compress (:964-982, :1020-1040, :1064-1072,
 
 Encode (`compress_frames`):
   1. traces: encode.frame_trace of each metablock (the mechanical trace
-     FSM, or at quality 11 the matcher's command list through it) on a
+     FSM, or the matcher's command list through the native or the
+     Python trace FSM) on a
      pool of up to 8 host threads, with the layout's lo_bucketed=False,
      each range-checked for the kernel (model_pass.check_trace);
   2. upload: the traces back to back on the device, 40 B a step, copied
@@ -28,9 +29,8 @@ Decode (`decompress_frames`): every frame of the container packed
 them (codec/scan_decode), each ok lane's window[:raw_len] taken; a lane
 the scan flags (dict commands, block switches, out-of-range contexts,
 corrupt streams) is decoded again on the host by native.decode_metablock
-at chunk 0, the reference's own abstain-and-redecode design; a frame
-that native code refuses too raises decode._host_decode's
-NotImplementedError (the golden engine is not ported).  STATS counts
+at chunk 0, the reference's own abstain-and-redecode design, and a frame
+that native code refuses too by the golden engine (engine_np).  STATS counts
 the frames by path.
 """
 from __future__ import annotations
@@ -47,9 +47,10 @@ from ..container import format as fmt
 from . import decode, encode, model_pass, scan_decode
 from .layout import ModelLayout, PROFILES
 
-# frames decoded by each path of decompress_frames since the last reset:
-# "scan" the device scan, "host" the native serial decode
-STATS = {"scan_frames": 0, "host_frames": 0}
+# frames decoded by each path since the last reset: "scan" the device
+# scan, "host" the native serial decode, "golden" the golden engine (a
+# frame native code refuses too, or a whole container: api.decompress)
+STATS = {"scan_frames": 0, "host_frames": 0, "golden_frames": 0}
 
 
 def reset_stats() -> None:
@@ -179,12 +180,15 @@ def decompress_frames(frames, profile: str, device,
         else:
             flagged.append(i)
     layout = ModelLayout(PROFILES[profile], lo_bucketed=False)
+    kinds = []
     with ThreadPoolExecutor(_pool_width()) as pool:
-        for i, raw in zip(flagged, pool.map(
+        for i, (raw, kind) in zip(flagged, pool.map(
                 lambda i: decode._host_decode(frames[i], layout, 0),
                 flagged)):
             out[offsets[i]:offsets[i + 1]] = np.frombuffer(raw, np.uint8)
+            kinds.append(kind)
     clock.mark("host")
     STATS["scan_frames"] += len(frames) - len(flagged)
-    STATS["host_frames"] += len(flagged)
+    STATS["host_frames"] += kinds.count("host")
+    STATS["golden_frames"] += kinds.count("golden")
     return out.tobytes()

@@ -31,16 +31,23 @@ import numpy as np
 import torch
 
 from .. import constants, native
-from . import lit_decode, lit_model
+from ..options import DivansOptions
+from . import deferred, engine_np, lit_decode, lit_model
 from .deferred import SUB_LIT, lit_subs_split
 
 LANES = 128
 GROUP_CHUNKS = 128               # chunk slots per lane per issued group
 N_FINISHERS = 2
 
-# frames decoded by each path of decompress_frames since the last reset:
-# "device" = literals on the lane kernel, "host" = native serial decode
-STATS = {"device_frames": 0, "host_frames": 0}
+# frames decoded by each path since the last reset: "device" = literals
+# on the lane kernel, "host" = native serial decode, "golden" = the
+# golden engine (a frame native code refuses, or a whole container the
+# golden engine decodes: api.decompress)
+STATS = {"device_frames": 0, "host_frames": 0, "golden_frames": 0}
+
+
+def reset_stats() -> None:
+    STATS.update(dict.fromkeys(STATS, 0))
 
 
 def _stream_words(s: bytes) -> np.ndarray:
@@ -213,14 +220,23 @@ def issue_lane_queues(queues: LaneQueues, n_steps: int, chunk: int, layout,
 
 
 def _host_decode(f, layout, chunk):
+    """A frame outside the card's envelope, on the host: (raw bytes,
+    "host") from the native serial decoder, or (raw bytes, "golden")
+    from the golden engine for a frame native code refuses (the golden
+    deferred decoder at chunk > 0, engine_np at chunk 0), as
+    divans_tpu.native.decompress does.  A corrupt frame raises the
+    golden engine's CodedError."""
     raw = native.decode_metablock(f.cmd, f.lit, f.raw_len,
                                   layout.profile.name != "stride", layout,
                                   chunk)
-    if raw is None:
-        raise NotImplementedError(
-            "frame outside the device envelope and the native decoder: "
-            "the golden deferred decoder is not ported (ROADMAP.md)")
-    return raw
+    if raw is not None:
+        return raw, "host"
+    opts = DivansOptions()
+    if chunk:
+        raw = deferred.decode_metablock(f.cmd, f.lit, f.raw_len, opts, chunk)
+    else:
+        raw = engine_np.decode_metablock(f.cmd, f.lit, f.raw_len, opts)
+    return raw, "golden"
 
 
 def decode_structure(f, chunk: int, layout):
@@ -271,11 +287,12 @@ def decompress_frames(frames, chunk: int, layout, device,
 
     def one(f):
         """("dev", script) for frames in the kernel envelope, else
-        ("host", raw bytes) decoded right here."""
+        ("host" or "golden", raw bytes) decoded right here."""
         sc = decode_structure(f, chunk, layout)
         if sc is not None:
             return "dev", sc
-        return "host", _host_decode(f, layout, chunk)
+        raw, kind = _host_decode(f, layout, chunk)
+        return kind, raw
 
     offsets = np.zeros(len(frames) + 1, np.int64)
     np.cumsum([f.raw_len for f in frames], out=offsets[1:])
@@ -318,8 +335,9 @@ def decompress_frames(frames, chunk: int, layout, device,
         for fut in as_completed(futs):
             kind, val = fut.result()
             i = futs[fut]
-            STATS["device_frames" if kind == "dev" else "host_frames"] += 1
-            if kind == "host":
+            STATS["device_frames" if kind == "dev" else f"{kind}_frames"] \
+                += 1
+            if kind != "dev":
                 out_buf[offsets[i]:offsets[i + 1]] = np.frombuffer(val,
                                                                    np.uint8)
                 continue

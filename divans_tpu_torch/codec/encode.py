@@ -5,12 +5,14 @@ divans_tpu/codec/jax_engine.compress.
     mechanical trace covers (native.supports: quality <= 10): the host
     codes each frame's cmd stream, the card its literals.
   * Uniform device lanes (jax_engine.py:984-1063 with
-    `deferred_model_pass`, :610), for quality 11 (native.supports_cmds):
-    the card codes both streams, one cmd lane per frame.
+    `deferred_model_pass`, :610), for every other option the card takes
+    (quality 11, detected stride and speeds, the IR optimizer): each
+    frame's command list is traced on the host and the card codes both
+    streams, one cmd lane per frame.
 
 Per metablock (frame), on a pool of up to 8 host threads: the trace
-(frame_trace: the mechanical FSM, or at quality 11 the matcher's
-command list through the FSM), the stream split, the cmd stream coded
+(frame_trace: the mechanical FSM, or the matcher's command list
+through the FSM), the stream split, the cmd stream coded
 (hybrid) or prepared for the card (uniform), the literals prepared for
 the card.  Then HYBRID_BATCH frames at a time the card runs, from one
 issuing thread on one stream, up to four jobs (batch_jobs), each a
@@ -52,6 +54,7 @@ from ..ans import rans_encode
 from ..container import format as fmt
 from ..ir.matcher import build_commands
 from . import cmd_pass, deferred_pass, lit_model, lit_pass
+from . import trace as trace_mod
 from .deferred import SUB_LIT, cmd_chunk, lit_subs_join
 
 HYBRID_BATCH = 16   # frames per device batch, as in the reference
@@ -141,15 +144,19 @@ def in_envelope(layout) -> bool:
 
 def frame_trace(raw: bytes, options, layout) -> np.ndarray:
     """One frame's trace: the mechanical FSM for the options
-    native.supports takes, the matcher's command list through the FSM
-    for those of native.supports_cmds (quality 11)."""
+    native.supports takes (the hybrid path), else (or where that FSM
+    abstains) the matcher's command list (ir/matcher.build_commands:
+    quality 11, detected options, the IR optimizer) through the native
+    FSM, or through the Python trace FSM (codec/trace) where native code
+    refuses the list (quality 11 without the context map)."""
     if native.supports(options):
-        return native.build_trace(raw, options, layout)
-    trace = native.build_trace_cmds(raw, build_commands(raw, options),
-                                    options, layout)
+        trace = native.build_trace(raw, options, layout)
+        if trace is not None:
+            return trace
+    commands = build_commands(raw, options)
+    trace = native.build_trace_cmds(raw, commands, options, layout)
     if trace is None:
-        raise NotImplementedError("the native trace builder refused the "
-                                  "command list")
+        trace = trace_mod.build_trace(raw, commands, options, layout)
     return trace
 
 

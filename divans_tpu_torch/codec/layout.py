@@ -1,8 +1,10 @@
 """Dense model layout: prior-table keys -> flat rows of one model array.
 
-A copy of the subset of divans_tpu/codec/layout.py the port uses: the
-profiles, their container flags, and the segment table the native
-library and the decode commit index by.  Row 0 is a frozen CDF_INIT row.
+A copy of divans_tpu/codec/layout.py: the profiles, their container
+flags, the segment table the native library, the model passes and the
+decode commit index by, and the golden engine's (table, key) -> row map
+(idx_for_key, for the Python trace FSM codec/trace).  Row 0 is a frozen
+CDF_INIT row.
 """
 from __future__ import annotations
 
@@ -47,14 +49,38 @@ FLAG_PROFILES = {v: k for k, v in PROFILE_FLAGS.items()}
 
 
 def profile_for_options(options) -> str:
-    """The model profile a stream written with `options` stays within
-    (the options the port's compress accepts: no block split, no
-    prior-bitmask detection)."""
+    """The model profile a stream written with `options` stays within."""
     if not options.use_context_map:
         return "stride"
+    if options.block_split:
+        return "split"
     if options.force_stride_value > 1:
-        return "mix"  # constant mask + context map
+        return "mix"  # constant mask + context map (ir/detect.py)
+    if options.prior_bitmask_detection:
+        return "mix"  # detection may emit a mask; stay in the wide profile
     return "cm"
+
+
+def emitted_profile(options, command_lists) -> str:
+    """The narrowest profile the *emitted* streams stay within.
+
+    profile_for_options sizes the encode layout by what the options MAY
+    produce; the container flag records what the metablocks actually
+    used, so e.g. block_split on homogeneous data (no switches emitted)
+    stays a plain cm container, byte-identical to the default encode."""
+    from ..ir import commands as cmds
+    if not options.use_context_map:
+        return "stride"
+    split = masked = False
+    for cl in command_lists:
+        for c in cl:
+            if isinstance(c, cmds.BlockSwitchLiteral):
+                split = True
+            elif isinstance(c, cmds.PredictionMode) and any(c.mixing_values):
+                masked = True
+    if split:
+        return "split"
+    return "mix" if masked else "cm"
 
 
 class ModelLayout:
@@ -108,3 +134,84 @@ class ModelLayout:
         for c, dim in zip(coords, shape):
             flat = flat * dim + c
         return off + flat
+
+    # ------------------------------------------------ golden-key mapping
+    def idx_for_key(self, table: str, key: tuple) -> int:
+        """Map a golden-engine (PriorTable name, key tuple) to a flat row.
+
+        Raises KeyError/AssertionError when the key is outside this
+        profile's dense bounds (caller falls back to a wider profile)."""
+        p = self.profile
+
+        def _chk(v, n):
+            if not 0 <= v < n:
+                raise KeyError(f"{table}{key} outside profile {p.name}")
+            return v
+
+        if table == "cc":
+            return self.idx("cc", _chk(key[0], 16))
+        if table == "lit_len":
+            kind, ctype = key[0], _chk(key[1], p.nb)
+            return self.idx({"cs": "ll_cs", "beg": "ll_beg",
+                             "last": "ll_last", "mant": "ll_mant"}[kind], ctype)
+        if table == "copy":
+            kind = key[0]
+            if kind == "ccs":
+                return self.idx("c_ccs", _chk(key[1], p.nb), _chk(key[2], 16))
+            if kind == "cbeg":
+                return self.idx("c_cbeg", _chk(key[1], p.nb))
+            if kind == "clast":
+                return self.idx("c_clast", _chk(key[1], p.nb))
+            if kind == "cmant":
+                return self.idx("c_cmant", _chk(key[1], p.nb), _chk(key[2], 5))
+            if kind == "dmn":
+                return self.idx("c_dmn", _chk(key[1], p.nd), _chk(key[2], 2))
+            if kind == "dbeg":
+                return self.idx("c_dbeg", _chk(key[1], p.nd), _chk(key[2], 8))
+            if kind == "dlast":
+                return self.idx("c_dlast", _chk(key[1], p.nd))
+            if kind == "dmant":
+                return self.idx("c_dmant", _chk(key[1], p.nd), _chk(key[2], 5))
+        if table == "dict":
+            kind = key[0]
+            if kind == "sbeg":
+                return self.idx("d_sbeg", _chk(key[1], p.nb))
+            if kind == "slast":
+                return self.idx("d_slast", _chk(key[1], p.nb))
+            if kind == "idx":
+                return self.idx("d_idx", _chk(key[1], p.nd), _chk(key[2], 5))
+            if kind == "tr":
+                return self.idx("d_tr", _chk(key[1], 2), _chk(key[2], 16))
+        if table == "btype":
+            kind = key[0]
+            if kind == "stride":
+                return self.idx("bt_stride", 0)
+            return self.idx({"mn": "bt_mn", "f": "bt_f", "s": "bt_s"}[kind],
+                            _chk(key[1], 3))
+        if table == "pred":
+            kind = key[0]
+            if kind in ("only", "dcm", "pd", "mvmode"):
+                return self.idx("pm_" + kind, 0)
+            if kind == "palette":
+                return self.idx("pm_palette", _chk(key[1], 4))
+            if kind == "mix":
+                return self.idx("pm_mix", _chk(key[1], 17))
+            return self.idx({"cmn": "pm_cmn", "cf": "pm_cf",
+                             "cs": "pm_cs"}[kind], _chk(key[1], 2))
+        if table in ("lit_hi", "lit_lo"):
+            sel, b, c = key
+            if sel == 1 and p.hi_s_shape is not None:
+                name = "lit_hi_s" if table == "lit_hi" else "lit_lo_s"
+                shape = p.hi_s_shape if table == "lit_hi" else p.lo_s_shape
+                return self.idx(name, _chk(b, shape[0]), _chk(c, shape[1]))
+            if sel != p.lit_sel:
+                raise KeyError(f"lit sel {sel} outside profile {p.name}")
+            shape = p.hi_shape if table == "lit_hi" else self.lo_shape
+            return self.idx(table, _chk(b, shape[0]), _chk(c, shape[1]))
+        if table == "cm":
+            if key[0] == 0:
+                return self.idx("cm_first", _chk(key[1], p.nctx))
+            # key[2] arrives pre-bucketed (engine_np._literal_nibble)
+            return self.idx("cm_second", _chk(key[1], 16),
+                            _chk(key[2], self.nctx_lo))
+        raise KeyError((table, key))

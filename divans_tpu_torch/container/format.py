@@ -8,8 +8,13 @@ A copy of divans_tpu/container/format.py (DESIGN.md defines the format):
   eof      : 0xFE
   trailer  : crc32c(raw)[4] b"ans~"
 
-Streamed frames (0x02) are read and reassembled into plain frames, as
-the reference does; the port writes plain frames only.
+  streamed : 0x02 varint(raw_len) varint(n_chunks)
+             n_chunks x (varint(raw_delta) varint(cmd_len) varint(lit_len))
+             the chunks' cmd and lit payloads, chunk by chunk
+
+A streamed frame's chunk payloads are prefix slices of the two streams:
+deserialize reassembles them into the plain frame, as the reference
+does.  compress writes streamed frames for streaming_chunk_bytes > 0.
 """
 from __future__ import annotations
 
@@ -29,6 +34,15 @@ class MetablockFrame:
     raw_len: int
     cmd: bytes
     lit: bytes
+
+
+@dataclasses.dataclass
+class StreamedMetablockFrame:
+    """Bounded-latency frame: chunks = [(raw_delta, cmd_bytes,
+    lit_bytes)], whose payloads concatenated are the plain frame's two
+    streams (codec/engine_np.encode_metablock_streamed writes them)."""
+    raw_len: int
+    chunks: list
 
 
 def write_varint(n: int) -> bytes:
@@ -78,13 +92,22 @@ def parse_header(data: bytes) -> tuple[int, int, int]:
     return window_size, data[7], data[6]
 
 
-def write_frame(frame: MetablockFrame) -> bytes:
+def write_frame(frame) -> bytes:
+    if isinstance(frame, StreamedMetablockFrame):
+        out = bytearray([constants.FRAME_METABLOCK_STREAMED])
+        out += write_varint(frame.raw_len) + write_varint(len(frame.chunks))
+        for rd, cb, lb in frame.chunks:
+            out += write_varint(rd) + write_varint(len(cb)) \
+                + write_varint(len(lb))
+        for _rd, cb, lb in frame.chunks:
+            out += cb + lb
+        return bytes(out)
     return (bytes([constants.FRAME_METABLOCK])
             + write_varint(frame.raw_len) + write_varint(len(frame.cmd))
             + write_varint(len(frame.lit)) + frame.cmd + frame.lit)
 
 
-def serialize(frames: list[MetablockFrame], window_size: int, mb_log2: int,
+def serialize(frames: list, window_size: int, mb_log2: int,
               crc: int, flags: int = 0) -> bytes:
     out = bytearray(write_header(window_size, mb_log2, flags))
     for f in frames:

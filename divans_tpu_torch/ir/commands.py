@@ -1,11 +1,12 @@
 """The command IR: brotli-style commands, the interchange between the
-matcher (ir/matcher) and the trace FSM (native.build_trace_cmds).  A
-copy of the subset of divans_tpu/ir/commands.py that the port's encode
-emits: no block switches.
+matcher (ir/matcher) and the coders (the trace FSM of
+native.build_trace_cmds and codec/trace, the golden engine
+codec/engine_np).  A copy of divans_tpu/ir/commands.py.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 from ..constants import LITERAL_PREDICTION_MODE_UTF8
 from ..probability.speed import DEFAULT_LITERAL_SPEED, Speed
@@ -34,6 +35,22 @@ class Dict:
 
 
 @dataclasses.dataclass
+class BlockSwitchLiteral:
+    block_type: int
+    stride: int = 0
+
+
+@dataclasses.dataclass
+class BlockSwitchCommand:
+    block_type: int
+
+
+@dataclasses.dataclass
+class BlockSwitchDistance:
+    block_type: int
+
+
+@dataclasses.dataclass
 class PredictionMode:
     """Model-configuration header command: everything the decoder needs,
     so the decoder is configuration-free."""
@@ -46,3 +63,12 @@ class PredictionMode:
     literal_context_map: bytes = b""     # 64 entries per literal block type
     distance_context_map: bytes = b""    # 4 entries per distance block type
     mixing_values: bytes = b""           # NUM_MIXING_VALUES entries or empty
+
+
+Command = Union[Literal, Copy, Dict, BlockSwitchLiteral, BlockSwitchCommand,
+                BlockSwitchDistance, PredictionMode]
+
+CMD_NIBBLE = {Copy: 0x1, Dict: 0x2, Literal: 0x3, BlockSwitchLiteral: 0x4,
+              BlockSwitchCommand: 0x5, BlockSwitchDistance: 0x6,
+              PredictionMode: 0x7}
+END_NIBBLE = 0xF

@@ -1,20 +1,29 @@
-"""LZ matcher at quality 11: raw bytes -> command IR.
+"""LZ matcher: raw bytes -> command IR.
 
-A port of the quality-11 subset of divans_tpu/ir/matcher.py (whose
-module notes are normative): the cost-model optimal parse with static
-dictionary edges, measured against the greedy parse on each frame's
-first 96 KiB, then a greedy static-dictionary pass inside the literal
-runs.  The heavy parts run in the native library (native.dict_scan,
+A port of divans_tpu/ir/matcher.py (whose module notes are normative).
+By quality:
+  * <= 9: the hash-chain greedy matcher with one-step lazy evaluation
+    (_find_matches_greedy, Python, as the reference's build_commands
+    runs it; native.find_matches is its C twin);
+  * 10: the cost-model optimal parse (native.find_matches_optimal);
+  * 11: the optimal parse with static dictionary edges, measured
+    against the greedy parse on each frame's first 96 KiB, then a
+    greedy static-dictionary pass inside the literal runs.
+build_commands then applies the options on the list: context-map
+clustering (ir/cmaps), the IR optimizer (ir/optimize, levels 1 and 2),
+block split (ir/blocks) and the prior-bitmask mask (ir/detect).  The
+heavy parts run in the native library (native.dict_scan,
 native.find_matches_optimal, native.find_matches, and the trace FSM and
 stream coder that measure a parse); Python builds the dictionary index
 once per process and assembles the command list.
 
-Emits [PredictionMode, (Literal | Copy | Dict)...] for one metablock.
-The reference's environment knobs are module constants here, at the
-reference's defaults.
+Emits [PredictionMode, (Literal | Copy | Dict | BlockSwitch*)...] for one
+metablock.  The reference's environment knobs are module constants here,
+at the reference's defaults.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -31,6 +40,8 @@ Q11_KCAND = 5          # its candidate frontier width
 LIT_COST_SCALE16 = 0   # 0 = one calibrated literal cost per block
 DICT_ALL_TR = False    # index every transform, not only _DICT_TTYPES
 PARSE_MEASURE_CAP = 96 << 10   # bytes the parse selection measures
+SPLIT_3FAMILY = False  # block split also segments commands and distances
+_HASH_MUL = 0x1E35A7BD  # multiplicative hash of the greedy matcher
 
 _DICT_LENGTHS = range(4, 25)   # word lengths indexed (all of RFC 7932)
 # transform families put into the index: Identity, UppercaseFirst,
@@ -242,14 +253,16 @@ def _commands_from_matches(data, matches, options):
 
 
 def find_matches(data: bytes, quality: int) -> list:
-    """[position, distance, length] rows sorted by position, at quality
-    10 or 11.  Quality 11 takes the optimal parse with dictionary edges
-    unless the greedy parse (native.find_matches) codes the frame's first
-    PARSE_MEASURE_CAP bytes smaller; quality 10 takes the optimal
-    parse."""
+    """[position, distance, length] rows sorted by position.  Quality 11
+    takes the optimal parse with dictionary edges unless the greedy
+    parse (native.find_matches) codes the frame's first
+    PARSE_MEASURE_CAP bytes smaller; quality 10 takes the optimal parse;
+    below 10 the greedy matcher."""
     n = len(data)
     if n < MIN_MATCH:
         return []
+    if quality < 10:
+        return _find_matches_greedy(data, quality)
     opt = find_matches_optimal(data, quality)
     if quality < 11:
         return opt
@@ -260,6 +273,158 @@ def find_matches(data: bytes, quality: int) -> list:
     if bo is not None and (bg is None or bo <= bg):
         return opt
     return greedy
+
+
+def _hash4(data: bytes, i: int) -> int:
+    v = int.from_bytes(data[i:i + 4], "little")
+    return ((v * _HASH_MUL) & 0xFFFFFFFF) >> 17  # 15-bit bucket
+
+
+def _match_len(data: bytes, a: int, b: int, limit: int) -> int:
+    n = 0
+    while b + n < limit and data[a + n] == data[b + n]:
+        n += 1
+    return n
+
+
+def _find_matches_greedy(data: bytes, quality: int) -> list:
+    """Greedy hash-chain matches with one-step lazy evaluation (quality
+    >= 5) and backward extension over the pending literals; chain depth
+    2^(quality - 4), capped at 64."""
+    n = len(data)
+    chains: dict[int, list[int]] = {}
+    depth = max(1, min(64, 1 << max(0, quality - 4)))
+    lazy = quality >= 5
+    matches: list[tuple[int, int, int]] = []
+
+    def best_at(i: int) -> tuple[int, int]:
+        """(length, distance) of the best match at i, or (0, 0)."""
+        if i + MIN_MATCH > n:
+            return 0, 0
+        cand = chains.get(_hash4(data, i))
+        best_len, best_dist = 0, 0
+        if cand:
+            for j in reversed(cand[-depth:]):
+                ln = _match_len(data, j, i, n)
+                if ln > best_len or (ln == best_len and i - j < best_dist):
+                    best_len, best_dist = ln, i - j
+                    if ln >= 128:
+                        break
+        return (best_len, best_dist) if best_len >= MIN_MATCH else (0, 0)
+
+    def insert(i: int) -> None:
+        if i + 4 <= n:
+            lst = chains.setdefault(_hash4(data, i), [])
+            lst.append(i)
+            if len(lst) > 4 * depth:
+                del lst[:2 * depth]
+
+    i = 0
+    prev_end = 0
+    while i + MIN_MATCH <= n:
+        ln, d = best_at(i)
+        if ln:
+            if lazy and i + 1 + MIN_MATCH <= n:
+                insert(i)
+                l2, d2 = best_at(i + 1)
+                if l2 > ln + 1:
+                    i += 1  # defer: the literal byte joins the pending run
+                    ln, d = l2, d2
+            # backward extension: pending literal bytes that also match
+            # at distance d join the copy
+            s = i
+            while s > prev_end and s > d and data[s - 1] == data[s - 1 - d]:
+                s -= 1
+            matches.append((s, d, ln + (i - s)))
+            end = i + ln
+            prev_end = end
+            if lazy:
+                step = max(1, ln // 8) if ln > 64 else 1
+                j = i + 1
+                while j < end:
+                    insert(j)
+                    j += step
+            i = end
+        else:
+            insert(i)
+            i += 1
+    return matches
+
+
+def _prefer_repeat_distances(data, matches):
+    """Swap a copy's distance for a distance-LRU hit when the same bytes
+    are there (an LRU mnemonic costs ~3 bits against 4 + 0.55 log2(d)
+    for an explicit distance); the LRU is simulated as the codec keeps
+    it (codec/model.py)."""
+    out = []
+    lru = [4, 11, 15, 16]
+    for (pos, dist, length) in matches:
+        best = dist
+        if dist == 0:                 # dictionary edge, not a copy
+            out.append((pos, dist, length))
+            continue
+        if dist not in lru:
+            threshold_gain = 16 + 9 * dist.bit_length() - 48
+            if threshold_gain > 0:
+                for d in lru:
+                    if d != dist and d <= pos \
+                            and data[pos - d:pos - d + length] \
+                            == data[pos:pos + length]:
+                        best = d
+                        break
+        out.append((pos, best, length))
+        if best != lru[0]:
+            if best == lru[1]:
+                lru[:2] = [best, lru[0]]
+            elif best == lru[2]:
+                lru[0], lru[1], lru[2] = best, lru[0], lru[1]
+            else:
+                lru[:] = [best] + lru[:3]
+    return out
+
+
+def _measured_costs(data, matches, lit16, dist16):
+    """A parse's measured costs for a second parse: the literal rate and
+    the per-bitlen distance costs (1/16 bits) of its replay under the
+    deferred model (codec/deferred.replay_trace at chunk 256), or None
+    outside the cm layout."""
+    from ..codec import deferred as deferred_mod
+    from ..codec import trace as trace_mod
+    from ..codec.layout import ModelLayout, PROFILES
+
+    try:
+        opts = DivansOptions()
+        layout = ModelLayout(PROFILES["cm"])
+        commands = _commands_from_matches(data, matches, opts)
+        tr, bounds = trace_mod.build_trace_with_bounds(
+            data, commands, opts, layout)
+        if tr.shape[0] == 0:
+            return None
+        _, freqs = deferred_mod.replay_trace(tr, 256)
+        bits16 = (-np.log2(np.maximum(freqs, 1) / 32768.0) * 16)
+        is_dist = np.zeros(layout.num_rows, bool)
+        for seg in ("c_dmn", "c_dbeg", "c_dlast", "c_dmant"):
+            off, shape = layout.segments[seg]
+            is_dist[off:off + int(np.prod(shape))] = True
+        lit_bits = bits16[tr[:, 2] == 1].sum()
+        lit_bytes = sum(len(c.data) for c in commands
+                        if isinstance(c, cmds.Literal))
+        new_lit16 = int(lit_bits / lit_bytes) if lit_bytes >= 64 else lit16
+        sums = np.zeros(33)
+        cnts = np.zeros(33)
+        for (a, b), c in zip(bounds, commands):
+            if isinstance(c, cmds.Copy):
+                rows = tr[a:b, 0]
+                bl = c.distance.bit_length()
+                sums[bl] += bits16[a:b][is_dist[rows]].sum()
+                cnts[bl] += 1
+        new_dist16 = np.array(dist16)
+        for bl in range(33):
+            if cnts[bl] >= 8:
+                new_dist16[bl] = int(sums[bl] / cnts[bl])
+        return max(new_lit16, 8), new_dist16
+    except (KeyError, AssertionError):
+        return None
 
 
 def _clip_matches(matches, cap: int):
@@ -280,7 +445,8 @@ def _clip_matches(matches, cap: int):
 
 def _measured_total_bits(data, matches):
     """Exact coded size of a parse in bits: both streams coded by the
-    native coder, under the default options, the unbucketed cm layout
+    native coder (traced by the native FSM, or codec/trace where it
+    refuses the list), under the default options, the unbucketed cm layout
     and chunk 256 (the reference measures under exactly these)."""
     from ..codec.layout import ModelLayout, PROFILES
 
@@ -292,8 +458,8 @@ def _measured_total_bits(data, matches):
         return None
     tr = native.build_trace_cmds(data, commands, opts, layout)
     if tr is None:
-        raise RuntimeError("the native trace builder refused a parse "
-                           "under measurement")
+        from ..codec import trace as trace_mod
+        tr = trace_mod.build_trace(data, commands, opts, layout)
     cmd_b, lit_b = native.encode_streams(
         tr, layout.num_rows, 256, lit_base=layout.segments["lit_hi"][0])
     return 8.0 * (len(cmd_b) + len(lit_b))
@@ -321,15 +487,16 @@ def _dict_matches_in(raw: bytes, lo: int, hi: int) -> list:
 
 
 def build_commands(raw: bytes, options: DivansOptions) -> list:
-    """One metablock's command list.  Covers the options without
-    context-map clustering, the IR optimizer, block split and prior
-    bitmask detection (the port refuses those before it gets here)."""
-    if (options.cmap_clustering or options.divans_ir_optimizer
-            or options.block_split or options.prior_bitmask_detection):
-        raise NotImplementedError("build_commands covers the quality-11 "
-                                  "options without clustering, the IR "
-                                  "optimizer, block split or masks")
+    """One metablock's command list under `options` (detection already
+    resolved: ir/detect.apply_detection)."""
     out: list = [default_prediction_mode(options)]
+    if (options.cmap_clustering and options.use_context_map
+            and not options.block_split):
+        # a data-adaptive literal context map
+        from . import cmaps
+        out[0] = dataclasses.replace(
+            out[0], literal_context_map=cmaps.cluster_lcm(
+                raw, max_clusters=options.cmap_clustering))
     matches = find_matches(raw, options.quality)
     use_dict = options.quality >= 11
 
@@ -357,4 +524,23 @@ def build_commands(raw: bytes, options: DivansOptions) -> list:
         pos = mpos + mlen
     if pos < len(raw):
         emit_literal_run(pos, len(raw))
+    if options.divans_ir_optimizer >= 2:
+        from .optimize import optimize_measured
+        out = out[:1] + optimize_measured(raw, out[1:], options)
+    elif options.divans_ir_optimizer:
+        from .optimize import optimize
+        out = out[:1] + optimize(raw, out[1:])
+    if options.block_split and options.use_context_map:
+        from . import blocks
+        cseg = dseg = None
+        if SPLIT_3FAMILY:
+            cseg, dseg = blocks.segment_commands(raw, out)
+        out = blocks.inject_switches(raw, out, blocks.segment(raw), options,
+                                     cseg, dseg)
+    elif (options.prior_bitmask_detection and options.use_context_map
+          and not options.force_stride_value):
+        from .detect import detect_prior_bitmask
+        mv = detect_prior_bitmask(raw, options.prior_bitmask_detection)
+        if mv is not None:
+            out[0] = dataclasses.replace(out[0], mixing_values=mv)
     return out

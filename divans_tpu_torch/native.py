@@ -7,18 +7,20 @@ library is absent).  The port binds it itself, with the calls it needs:
   * decode: the command-structure pass (`decode_cmd_structure`), the
     script executor (`execute_script`) and the serial whole-frame decoder
     (`decode_metablock`) for frames outside the device envelope;
-  * encode: the matcher and trace FSM (`build_trace`), the stream coder
-    (`encode_streams`), the literal packer of the device encode
-    (`pack_lit`) and the host-only `compress`; up to quality 10 the
-    trace is mechanical (matches straight into the FSM), at quality 11
-    the matcher's command list (ir/matcher: the greedy matcher
-    `find_matches`, the dictionary scan `dict_scan` and the optimal
-    parse `find_matches_optimal` with dictionary edges) goes through the
-    FSM (`build_trace_cmds`);
+  * encode: the matcher and trace FSM (`build_trace`, with a
+    prior-bitmask mask), the stream coder (`encode_streams`), the
+    literal packer of the device encode (`pack_lit`) and the host-only
+    `compress`; the trace is mechanical (matches straight into the FSM)
+    for the options of `supports_trace`, else the matcher's command
+    list (ir/matcher.build_commands: quality 11, the IR optimizer, block
+    split) goes through the FSM (`build_trace_cmds`);
+  * the host-only `decompress`, a frame at a time;
   * `crc32c` (SSE4.2).
 
-There is no pure-Python engine behind it: if the library cannot be built
-or loaded, `load()` raises.
+If the library cannot be built or loaded, `load()` raises.  Where the
+native code refuses (`compress` returns None, `decode_metablock` None),
+the golden engine (codec/engine_np, codec/deferred) codes in Python, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -172,30 +174,29 @@ def _dict_args():
 Q10_DEPTH = 24   # chain depth of the quality-10 optimal parse
 Q10_KCAND = 2    # its candidate frontier width
 
-def supports(options: DivansOptions) -> bool:
-    """Does the wholly-native encode (matcher + trace FSM + coder, no
-    Python command lists) cover these options?"""
+def supports_trace(options: DivansOptions) -> bool:
+    """Does the mechanical trace (matcher straight into the FSM,
+    `build_trace`) cover these options?  Detection is resolved first
+    (ir/detect.apply_detection): its result is a stride and speeds,
+    which the FSM takes; a prior-bitmask mask goes in as `mask`."""
     return (options.quality < 11
             and options.prior_depth == 0
             and options.external_probs is None
             and not options.block_split
             and options.cmap_clustering == 0
             and options.streaming_chunk_bytes == 0
-            and options.divans_ir_optimizer == 0
+            and options.divans_ir_optimizer == 0)
+
+
+def supports(options: DivansOptions) -> bool:
+    """Does the hybrid encode (the mechanical trace, the cmd stream coded
+    on the host) cover these options?  The mechanical trace's options
+    with no detection asked: detected options take the command-list
+    route on the card, as the reference's device engine runs them."""
+    return (supports_trace(options)
             and not options.stride_detection_quality
             and not options.speed_detection_quality
             and not options.prior_bitmask_detection)
-
-
-def supports_cmds(options: DivansOptions) -> bool:
-    """Does the command-list encode (ir/matcher.build_commands, then
-    `build_trace_cmds`) cover these options?  Quality 11 with the
-    context map, with otherwise the options `supports` takes: the IR
-    optimizer, block split, context-map clustering, masks and detection
-    stay refused (and the FSM refuses quality 11 without a context map,
-    as the reference's does)."""
-    return (options.quality == 11 and options.use_context_map
-            and supports(dataclasses.replace(options, quality=10)))
 
 
 def find_matches(raw: bytes, quality: int) -> np.ndarray:
@@ -257,10 +258,20 @@ def find_matches_optimal(data: bytes, depth: int, kcand: int,
     return out[:nm]
 
 
-def build_trace(raw: bytes, options: DivansOptions,
-                layout: ModelLayout) -> np.ndarray:
-    """raw bytes -> int32[n,10] trace (the mechanical trace FSM), for
-    options that `supports` accepts."""
+def _mask_ok(mask: bytes) -> bool:
+    """The native FSM covers mask values {0} and the strides {4..11}."""
+    return all(v == 0 or 4 <= v <= 11 for v in set(mask))
+
+
+def build_trace(raw: bytes, options: DivansOptions, layout: ModelLayout,
+                mask: bytes | None = None) -> np.ndarray | None:
+    """raw bytes -> int32[n,10] trace (the mechanical trace FSM), or None
+    outside `supports_trace` or the FSM's envelope.  `mask` is an
+    8192-entry per-context mixing mask (a prior-bitmask detection's)."""
+    if not supports_trace(options):
+        return None
+    if mask is not None and not _mask_ok(mask):
+        return None
     lib = load()
     n = len(raw)
     if options.quality >= 10 and n >= 4:
@@ -272,12 +283,14 @@ def build_trace(raw: bytes, options: DivansOptions,
         matches = np.zeros((1, 3), np.int32)
     cap = 4 * n + 16384
     out = np.empty((cap, 10), np.int32)
+    mask_buf = ((ctypes.c_uint8 * 8192).from_buffer_copy(mask)
+                if mask is not None else None)
     ns = lib.dtpu_build_trace(
         raw, n, matches.ctypes.data_as(ctypes.c_void_p), nm,
-        *_fsm_args(options, layout), None,
+        *_fsm_args(options, layout), mask_buf,
         out.ctypes.data_as(ctypes.c_void_p), cap)
     if ns < 0:
-        raise NotImplementedError("the native trace builder abstained")
+        return None
     return out[:ns]
 
 
@@ -303,17 +316,38 @@ def _fsm_args(options: DivansOptions, layout: ModelLayout) -> tuple:
             ptr(lut0), ptr(lut1))
 
 
-def _cmd_rows(commands, options: DivansOptions) -> np.ndarray | None:
-    """Command list -> int32[n,5] rows for dtpu_build_trace_cmds ((0,
+def _cmd_rows(commands, options: DivansOptions):
+    """Command list -> (int32[n,5] rows for dtpu_build_trace_cmds, mask,
+    nb), or None when the list is outside the native FSM.  Rows: (0,
     len) Literal, (1, distance, len) Copy, (2, word_size, word_id,
-    transform, final_size) Dict), or None when the list is outside what
-    the port emits: a first command other than the options' default
-    PredictionMode, or a command of another kind."""
+    transform, final_size) Dict, (3, block_type, stride) a literal block
+    switch.  The first command is a PredictionMode equal to the options'
+    default but for its mixing mask (values {0, 4..11}: `mask`) and an
+    identity literal map of nb <= 4 block types."""
     from .ir import commands as cmds
     from .ir.matcher import default_prediction_mode
 
-    if not commands or commands[0] != default_prediction_mode(options):
+    if not commands or not isinstance(commands[0], cmds.PredictionMode):
         return None
+    pm = commands[0]
+    default = default_prediction_mode(options)
+    mask = None
+    nb = 1
+    if pm != default:
+        if dataclasses.replace(
+                pm, mixing_values=default.mixing_values,
+                literal_context_map=default.literal_context_map) != default:
+            return None
+        lcm = pm.literal_context_map
+        if lcm != default.literal_context_map:
+            nb = len(lcm) // 64
+            if not (1 <= nb <= 4 and lcm == bytes(range(nb * 64))):
+                return None
+        mv = pm.mixing_values
+        if mv and any(mv):
+            if not _mask_ok(mv) or len(mv) != 8192:
+                return None
+            mask = bytes(mv)
     rows = np.zeros((len(commands) - 1, 5), np.int32)
     for i, c in enumerate(commands[1:]):
         if isinstance(c, cmds.Literal):
@@ -322,26 +356,36 @@ def _cmd_rows(commands, options: DivansOptions) -> np.ndarray | None:
             rows[i] = (1, c.distance, c.num_bytes, 0, 0)
         elif isinstance(c, cmds.Dict):
             rows[i] = (2, c.word_size, c.word_id, c.transform, c.final_size)
+        elif isinstance(c, cmds.BlockSwitchLiteral):
+            rows[i] = (3, c.block_type, c.stride, 0, 0)
         else:
             return None
-    return rows
+    return rows, mask, nb
 
 
 def build_trace_cmds(raw: bytes, commands, options: DivansOptions,
                      layout: ModelLayout) -> np.ndarray | None:
     """An explicit command list -> int32[n,10] trace through the C++ FSM
-    (Dict commands included: the quality-11 encode), or None when the
-    list or the FSM is outside the envelope."""
-    rows = _cmd_rows(commands, options)
-    if rows is None or layout.segments["cm_first"][1][0] < 64:
-        return None   # one block type needs 64 context rows
+    (Dict commands, masks and literal block switches included), or None
+    when the list or the FSM is outside the envelope (codec/trace is
+    the Python FSM for those)."""
+    res = _cmd_rows(commands, options)
+    if res is None:
+        return None
+    rows, mask, nb = res
+    if mask is not None and "lit_hi_s" not in layout.segments:
+        return None   # a masked stream needs the mix or split layout
+    if nb * 64 > layout.segments["cm_first"][1][0]:
+        return None   # each block type needs 64 context rows
     lib = load()
     n = len(raw)
     cap = 4 * n + 16384
     out = np.empty((cap, 10), np.int32)
+    mask_buf = ((ctypes.c_uint8 * 8192).from_buffer_copy(mask)
+                if mask is not None else None)
     ns = lib.dtpu_build_trace_cmds(
         raw or b"\0", n, rows.ctypes.data_as(ctypes.c_void_p), rows.shape[0],
-        *_fsm_args(options, layout), None, 1,
+        *_fsm_args(options, layout), mask_buf, nb,
         out.ctypes.data_as(ctypes.c_void_p), cap)
     if ns < 0:
         return None
@@ -393,50 +437,93 @@ def pack_lit(trace: np.ndarray, lit_base: int):
     return row[:cnt // 2], spd, cnt
 
 
-def compress(data: bytes, options: DivansOptions | None = None) -> bytes:
-    """Host-native compress: byte-identical to divans_tpu.native.compress
-    on the options it covers (`supports`, and quality 11 through
-    `supports_cmds`).  The reference the device encode (codec/encode.py)
-    is held against.  Raises NotImplementedError on the rest (detection,
-    block split, context-map clustering, streaming, the IR optimizer)."""
+def compress(data: bytes,
+             options: DivansOptions | None = None) -> bytes | None:
+    """Host-native compress, byte-identical to divans_tpu.native.compress:
+    detection resolved first (ir/detect.apply_detection), each frame
+    traced by the mechanical FSM (with a prior-bitmask mask where one is
+    detected) or from its command list (ir/matcher.build_commands:
+    quality 11, the IR optimizer, block split), then both streams coded
+    here.  Returns None outside that envelope (ECDF, streaming, a list
+    the FSM refuses: clustered context maps, quality 11 without the
+    context map), where the golden engine (codec/engine_np) codes the
+    file.  The reference the card's encode is held against."""
     from concurrent.futures import ThreadPoolExecutor
     from .container import format as fmt
     from .codec.deferred import chunk_to_flags
-    from .codec.encode import frame_trace
     from .codec.layout import PROFILE_FLAGS, profile_for_options
+    from .ir import commands as ir_cmds
+    from .ir.detect import apply_detection, detect_prior_bitmask
+    from .ir.matcher import build_commands
 
     options = options or DivansOptions()
-    if not (supports(options) or supports_cmds(options)):
-        raise NotImplementedError(
-            "port compress covers the mechanical trace (quality <= 10) and "
-            "quality 11 with the context map; detection, block split, "
-            "context-map clustering, streaming and the IR optimizer are "
-            "not ported")
+    if (options.stride_detection_quality or options.speed_detection_quality
+            or options.force_stride_value):
+        options = apply_detection(data, options)
+    # the command-level envelope (the FSM may still refuse a list)
+    cmds_ok = (options.prior_depth == 0 and options.external_probs is None
+               and options.streaming_chunk_bytes == 0)
+    if not (supports_trace(options) or cmds_ok):
+        return None
     profile = profile_for_options(options)
-    chunk = options.chunk_nibbles
+    # masked and block-split streams stay per-nibble adaptive, as
+    # codec/engine_np.compress codes them
+    chunk = (0 if options.block_split or options.prior_bitmask_detection
+             else options.chunk_nibbles)
     layout = ModelLayout(PROFILES[profile], lo_bucketed=chunk > 0)
     lit_base = layout.segments["lit_hi"][0]
 
     def one(raw):
-        trace = frame_trace(raw, options, layout)
+        """(frame, used a block switch, used a mask), or None outside
+        the native envelope."""
+        mask = None
+        f_split = f_mask = False
+        if (options.prior_bitmask_detection and options.use_context_map
+                and not options.force_stride_value):
+            mask = detect_prior_bitmask(raw, options.prior_bitmask_detection)
+            f_mask = mask is not None and any(mask)
+        trace = build_trace(raw, options, layout, mask=mask)
+        if trace is None and cmds_ok:
+            commands = build_commands(raw, options)
+            for c in commands:
+                if isinstance(c, ir_cmds.BlockSwitchLiteral):
+                    f_split = True
+                elif (isinstance(c, ir_cmds.PredictionMode)
+                      and any(c.mixing_values)):
+                    f_mask = True
+            trace = build_trace_cmds(raw, commands, options, layout)
+        if trace is None:
+            return None
         cmd_b, lit_b = encode_streams(trace, layout.num_rows, chunk,
                                       lit_base=lit_base)
-        return fmt.MetablockFrame(len(raw), cmd_b, lit_b)
+        return fmt.MetablockFrame(len(raw), cmd_b, lit_b), f_split, f_mask
 
     mb = options.metablock_size
     blocks = [data[off:off + mb] for off in range(0, len(data), mb)]
     # metablocks are independent; ctypes releases the GIL
     if len(blocks) > 1:
         with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
-            frames = list(ex.map(one, blocks))
+            results = list(ex.map(one, blocks))
     else:
-        frames = [one(b) for b in blocks]
-    # on these options the emitted profile is the layout's: a forced
-    # stride with the context map on puts a constant mask in every PM
-    # ("mix"), no context map is "stride", anything else "cm"
-    return fmt.serialize(frames, options.window_size, options.mb_log2,
-                         crc32c(data),
-                         flags=PROFILE_FLAGS[profile] | chunk_to_flags(chunk))
+        results = [one(b) for b in blocks]
+    if any(r is None for r in results):
+        return None
+    used_split = any(r[1] for r in results)
+    # a forced stride with the context map puts a constant mask in every PM
+    used_mask = (any(r[2] for r in results)
+                 or (options.use_context_map and options.force_stride_value > 1))
+    # the flag records what the streams used (layout.emitted_profile)
+    if not options.use_context_map:
+        emitted = "stride"
+    elif used_split:
+        emitted = "split"
+    elif used_mask:
+        emitted = "mix"
+    else:
+        emitted = "cm"
+    return fmt.serialize([r[0] for r in results], options.window_size,
+                         options.mb_log2, crc32c(data),
+                         flags=PROFILE_FLAGS[emitted] | chunk_to_flags(chunk))
 
 
 # ------------------------------------------------------------------ decode
@@ -553,3 +640,44 @@ def execute_script(script: NativeScript, lit_bytes,
     if out is None:
         return dst[:script.raw_len].tobytes()
     return None
+
+
+def decompress(blob: bytes) -> bytes:
+    """Host-native decompress, each frame by `decode_metablock`, a frame
+    it refuses by the golden engine (codec/deferred.decode_metablock at
+    chunk > 0, codec/engine_np.decode_metablock at chunk 0), as
+    divans_tpu.native.decompress does."""
+    from concurrent.futures import ThreadPoolExecutor
+    from .codec import deferred, engine_np
+    from .codec.layout import FLAG_PROFILES
+    from .container import format as fmt
+
+    _w, _mb, frames, stored_crc, flags = fmt.deserialize(blob)
+    chunk = deferred.flags_to_chunk(flags)
+    profile = FLAG_PROFILES.get(flags & 0b11)
+    layout = (ModelLayout(PROFILES[profile], lo_bucketed=chunk > 0)
+              if profile else None)
+    opts = DivansOptions()
+
+    def one(f):
+        raw = None
+        if layout is not None:
+            raw = decode_metablock(f.cmd, f.lit, f.raw_len,
+                                   profile != "stride", layout, chunk)
+        if raw is None:
+            if chunk:
+                raw = deferred.decode_metablock(f.cmd, f.lit, f.raw_len,
+                                                opts, chunk)
+            else:
+                raw = engine_np.decode_metablock(f.cmd, f.lit, f.raw_len,
+                                                 opts)
+        return raw
+
+    if len(frames) > 1:
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+            parts = list(ex.map(one, frames))
+    else:
+        parts = [one(f) for f in frames]
+    out = b"".join(parts)
+    fmt.check_crc(out, stored_crc)
+    return out

@@ -69,7 +69,7 @@ def test_compress_matches_references(kw):
                                                      **kw))
     raw, stats = _roundtrip(got)
     assert raw == data
-    assert stats == {"scan_frames": 2, "host_frames": 0}
+    assert stats == {"scan_frames": 2, "host_frames": 0, "golden_frames": 0}
 
 
 @pytest.mark.parametrize("data", [b"", b"\x00", bytes(range(256)) * 3],
@@ -104,7 +104,8 @@ def test_q11_compress_and_host_frames(dictionary_indexes):
     assert with_dict > 0
     raw, stats = _roundtrip(got)
     assert raw == data
-    assert stats == {"scan_frames": 2 - with_dict, "host_frames": with_dict}
+    assert stats == {"scan_frames": 2 - with_dict, "host_frames": with_dict,
+                     "golden_frames": 0}
 
 
 def test_decompress_reference_mixing_container():
@@ -112,26 +113,18 @@ def test_decompress_reference_mixing_container():
     level decodes on the scan."""
     data = _data(2500, seed=6)
     blob = jnative.compress(data, JOptions(dynamic_context_mixing=2))
-    assert _roundtrip(blob) == (data, {"scan_frames": 1, "host_frames": 0})
+    assert _roundtrip(blob) == (data, {"scan_frames": 1, "host_frames": 0,
+                                       "golden_frames": 0})
 
 
 def test_corrupt_container_raises():
     """A flipped bit in a frame's cmd stream: the scan flags the frame,
-    the host decoder refuses it or decodes bytes the CRC rejects."""
+    and the host decoders (native, then the golden engine) refuse it or
+    decode bytes the CRC rejects: a CodedError either way."""
     data = _data(2500, seed=7)
     blob = port.compress(data, port.DivansOptions(), device="cpu")
     frame = jfmt.deserialize(blob)[2][0]
     bad = bytearray(blob)
     bad[blob.index(frame.cmd) + 9] ^= 0x10
-    with pytest.raises((CodedError, NotImplementedError)):
+    with pytest.raises(CodedError):
         port.decompress(bytes(bad), device="cpu")
-
-
-def test_unknown_adaptive_flags_raise():
-    """Flags outside the profiles (the reference sends them to its golden
-    engine, which is not ported) raise."""
-    blob = bytearray(port.compress(b"abc" * 50, port.DivansOptions(),
-                                   device="cpu"))
-    blob[6] |= 0x80          # header byte 6: the flags
-    with pytest.raises(NotImplementedError, match="flags"):
-        port.decompress(bytes(blob), device="cpu")

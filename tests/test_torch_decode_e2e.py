@@ -37,7 +37,7 @@ def _corpus(n: int, seed: int) -> bytes:
 
 
 def _decode(blob: bytes) -> bytes:
-    decode.STATS.update(device_frames=0, host_frames=0)
+    decode.reset_stats()
     return port.decompress(blob, device="cpu")
 
 
@@ -50,7 +50,8 @@ def test_reference_container_roundtrips_on_device_path(mb, size):
     n_frames = len(jfmt.deserialize(blob)[2])
     assert _decode(blob) == data
     # every cm frame went through the lane decode, none to the host path
-    assert decode.STATS == {"device_frames": n_frames, "host_frames": 0}
+    assert decode.STATS == {"device_frames": n_frames, "host_frames": 0,
+                            "golden_frames": 0}
 
 
 def test_port_compress_roundtrips():
@@ -70,7 +71,8 @@ def test_other_profiles_take_the_host_path(kw):
                                            chunk_nibbles=256, **kw))
     n_frames = len(jfmt.deserialize(blob)[2])
     assert _decode(blob) == data
-    assert decode.STATS == {"device_frames": 0, "host_frames": n_frames}
+    assert decode.STATS == {"device_frames": 0, "host_frames": n_frames,
+                            "golden_frames": 0}
 
 
 def test_empty_input_roundtrips():
@@ -87,7 +89,8 @@ def test_adaptive_container_is_not_ported():
     blob = jnative.compress(data, JOptions())
     adaptive.reset_stats()
     assert _decode(blob) == data
-    assert adaptive.STATS == {"scan_frames": 1, "host_frames": 0}
+    assert adaptive.STATS == {"scan_frames": 1, "host_frames": 0,
+                              "golden_frames": 0}
 
 
 def test_corrupt_crc_raises():

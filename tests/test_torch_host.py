@@ -273,13 +273,3 @@ def test_compress_profiles_match_reference(kw):
     kw = dict(dict(metablock_size=1 << 14, chunk_nibbles=256), **kw)
     assert native.compress(data, port.DivansOptions(**kw)) == \
         jnative.compress(data, JOptions(**kw))
-
-
-@pytest.mark.parametrize("kw", [dict(quality=11, use_context_map=False),
-                                dict(block_split=True),
-                                dict(stride_detection_quality=1),
-                                dict(divans_ir_optimizer=1)])
-def test_compress_raises_outside_native(kw):
-    with pytest.raises(NotImplementedError):
-        port.compress(b"hello world" * 100, port.DivansOptions(**kw),
-                      device="cpu")

@@ -39,6 +39,35 @@ def test_import_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+# the host modules of the golden engine and the options (copies of the
+# JAX package's modules that import no JAX: the port keeps its own)
+HOST_MODULES = ["probability.scalar", "probability.blend_cdf",
+                "probability.external_cdf", "ans.coder_np", "codec.model",
+                "codec.engine_np", "codec.deferred", "codec.trace",
+                "ir.detect", "ir.optimize", "ir.blocks", "ir.cmaps",
+                "ir.matcher"]
+
+
+def test_host_modules_load_no_jax():
+    """In a fresh interpreter, importing each host module of the golden
+    engine and the options, and running the golden engine and detection
+    on a few bytes, leaves no jax and no divans_tpu module."""
+    code = ("import sys, importlib; "
+            + "; ".join(f"importlib.import_module('divans_tpu_torch.{m}')"
+                        for m in HOST_MODULES)
+            + "; from divans_tpu_torch.codec import engine_np; "
+            "from divans_tpu_torch.options import DivansOptions as O; "
+            "d = bytes(range(256)) * 20; "
+            "o = O(stride_detection_quality=1, speed_detection_quality=1); "
+            "assert engine_np.decompress(engine_np.compress(d, o)) == d; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'divans_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=_rel)
 def test_no_jax_or_reference_imports(path):
     tree = ast.parse(open(path, encoding="utf-8").read(), path)
