@@ -119,21 +119,22 @@ Phases, each printing its line; any failure raises and exits non-zero:
  19. detection (stride_detection_quality=1, speed_detection_quality=1,
      chunk 256) on a 16 MiB record corpus made from the seed (int16
      random walks on four channels): the detected stride (> 1) and
-     speeds printed; the host-only reference (native.compress); on the
-     first batch of the uniform lanes (the detected options' command
-     lists) the cmd pass, the generic pass on the mix profile's
-     literals and the rANS encode on both against their plain versions
-     (_deferred_compare: the rANS encode on each lane's first
-     RANS_CMP_STEPS steps, timed on the whole lanes); one warm and one
-     timed encode equal to the reference; one round trip (on the host,
-     the mix profile);
+     speeds printed; the host-only reference (native.compress); the
+     hybrid takes the detected options (the host codes the cmd
+     streams, encode.STATS printed): on the first batch the generic
+     pass on the mix profile's literals and the rANS encode on them
+     against their plain versions (_deferred_compare: the rANS encode
+     on each lane's first RANS_CMP_STEPS steps, timed on the whole
+     lanes); one warm and one timed encode equal to the reference; one
+     round trip (on the host, the mix profile);
  20. the same options at chunk 0 on the same corpus: the adaptive
      kernels on the path's inputs (_adaptive_compare cut at
      OPT_AD_CMP_STEPS and OPT_SCAN_CMP_STEPS), one timed encode, one
      round trip (the scan flags the mix frames to the host, counted);
  21. speed detection at chunk 256 on the corpus's first 16 MiB (stride
-     1 keeps the cm profile): the cmd pass, the lit pass at the detected
-     speeds and the rANS encode on the first batch, the decode kernel on
+     1 keeps the cm profile), on the hybrid: the lit pass at the
+     detected speeds and the rANS encode on the first batch, the decode
+     kernel on
      the container's first lane group cut at DEC_CMP_CHUNKS chunks (the
      bytes a prefix of the whole launch's), one timed encode, one round
      trip through the decode kernel;
@@ -149,7 +150,26 @@ Phases, each printing its line; any failure raises and exits non-zero:
      chunk 0 and 256, external probabilities made from the seed, and
      streamed frames: compress equal to the host-only reference
      (native.compress, else the golden engine), decompress on the card,
-     the frames by path (scan, literal kernel, native, golden) printed.
+     the frames by path (scan, literal kernel, native, golden) printed;
+ 25. billing (compress(billing_out=), quality 10, chunk 256) on the
+     corpus's first 16 MiB: no hybrid, so the cmd pass, the lit pass
+     and the rANS encode on the first batch against their plain
+     versions (cut as phase 19); the billed encode equal to the unbilled
+     one, every cmd stream on the card, the billing table's TOTAL and
+     both MB/s printed; the billing dict against a device="cpu" run's on
+     the first 256 KiB;
+ 26. billing at chunk 0 on the same 16 MiB: the model pass on the path's
+     traces and the rANS encode against their plain versions (cut as
+     phase 20), the billed encode equal to the unbilled one, the billing
+     dict against a CPU run's on the first 16 KiB at metablock 2^12;
+ 27. the CLI (divans_tpu_torch.cli.main) on the 48 MiB through files:
+     -c -timing (equal to compress's container; the tracelog stage
+     table printed) and -d (equal to the corpus), launches counted, MB/s
+     beside compress's and decompress's;
+ 28. the streaming adapters (io_adapters) on the first 16 MiB at the
+     defaults in 1 MiB writes and reads, on the host (no launch): the
+     reader's output equals the input, the writer's container decodes
+     through decompress on the card (one scan launch).
 Each path's launches are counted with the counts set to 0 just before
 its run.  Then one JSON line with the kernels' numbers, one entry for
 each kernel and path (the kernel's launches on that path, its
@@ -162,11 +182,13 @@ import contextlib
 import dataclasses
 import glob
 import hashlib
+import io
 import json
 import os
 import subprocess
 import sys
 import sysconfig
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -174,9 +196,10 @@ import numpy as np
 import torch
 
 import divans_tpu_torch as dt
-from divans_tpu_torch import api, cuda_build, native
+from divans_tpu_torch import (api, cli, cuda_build, io_adapters, native,
+                              tracelog)
 from divans_tpu_torch.ans import rans_encode
-from divans_tpu_torch.codec import (adaptive, cmd_pass, decode,
+from divans_tpu_torch.codec import (adaptive, billing, cmd_pass, decode,
                                     deferred_pass, encode, lit_decode,
                                     lit_pass, model_pass, scan_decode)
 from divans_tpu_torch.codec.deferred import SUB_LIT, cmd_chunk, flags_to_chunk
@@ -331,7 +354,8 @@ def phase_device() -> tuple[str, str]:
     name = torch.cuda.get_device_name(0)
     print(smi)
     print(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__}"
-          f" cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
+          f" cuda {torch.version.cuda} | count {torch.cuda.device_count()} | "
+          f"host cores (os.cpu_count) {os.cpu_count()}")
     return name, smi
 
 
@@ -381,16 +405,17 @@ def _layout(opts) -> ModelLayout:
     return ModelLayout(PROFILES[profile_for_options(opts)], lo_bucketed=True)
 
 
-def _first_batch(corpus: bytes, opts):
+def _first_batch(corpus: bytes, opts, billing: bool = False):
     """The host side of the main path's first batch (the corpus's first
     HYBRID_BATCH frames, or all of a shorter one; host_frame on 8
-    threads)."""
+    threads, as a billed encode prepares them when `billing`)."""
     layout = _layout(opts)
     end = min(len(corpus), encode.HYBRID_BATCH * MB_SIZE)
     blocks = [corpus[o:o + MB_SIZE] for o in range(0, end, MB_SIZE)]
     with ThreadPoolExecutor(8) as ex:
         return list(ex.map(
-            lambda b: encode.host_frame(b, opts, layout, CHUNK), blocks))
+            lambda b: encode.host_frame(b, opts, layout, CHUNK, billing),
+            blocks))
 
 
 def _lit_pass_compare(got, device, tag: str, smi: str):
@@ -566,9 +591,10 @@ def _encode_runs(data: bytes, ref: bytes, opts, kernels: dict,
     `kernels` ({entry name: kernel module}) and encode.STATS are counted
     over the first timed run (the counts set to 0 just before it): every
     kernel must have launched and the frame counts must be `expect` (the
-    others 0); with expect None, no cmd stream may be coded on the host
-    and each stream's counts must sum to the frames.  Returns (launches,
-    best MB/s)."""
+    others 0); with expect None, every cmd stream must be coded on the
+    host (the hybrid) when native.supports takes the options and none
+    otherwise (the uniform lanes), and each stream's counts must sum to
+    the frames.  Returns (launches, best MB/s)."""
     if warm:
         assert dt.compress(data, opts) == ref, f"[{tag}] warm encode differs"
     times = []
@@ -592,8 +618,9 @@ def _encode_runs(data: bytes, ref: bytes, opts, kernels: dict,
         assert stats == _stats(**expect), stats
     else:
         n = len(fmt.deserialize(ref)[2])
-        assert stats["cmd_host"] == 0 and \
-            stats["cmd_device"] + stats["cmd_generic"] == n and \
+        host = n if native.supports(opts) else 0
+        assert stats["cmd_host"] == host and \
+            stats["cmd_device"] + stats["cmd_generic"] == n - host and \
             stats["lit_device"] + stats["lit_generic"] == n, stats
     mbps = len(data) / min(times) / 1e6
     print(f"[{tag}] encode e2e {mbps:.2f} MB/s best of {runs}"
@@ -1999,24 +2026,31 @@ def _rans_cut_compare(st, fr, counts, tag: str, lanes: str, smi: str):
                          smi, main=(st, fr, counts))
 
 
-def _deferred_compare(data: bytes, res, device, tag: str, smi: str) -> dict:
-    """The uniform lanes' kernels on the path's first batch (host_frame
-    on the resolved options, batch_jobs' packing): the cmd streams'
-    pass (kernel 4, or 5 where a frame's speeds vary within a row), the
-    literals' (kernel 3, or 5 outside its envelope), each against its
-    plain version on the whole batch, then the rANS encode on both (cut
-    as _rans_cut_compare says).  Returns {kernel name: entry}, the rANS
-    encode's two launches summed."""
-    got = _first_batch(data, res)
+def _deferred_compare(data: bytes, res, device, tag: str, smi: str,
+                      billing: bool = False) -> dict:
+    """The kernels of the path's first batch (host_frame on the resolved
+    options, as a billed encode prepares it when `billing`; batch_jobs'
+    packing): on the uniform lanes the cmd streams' pass (kernel 4, or 5
+    where a frame's speeds vary within a row), the literals' (kernel 3,
+    or 5 outside its envelope), each against its plain version on the
+    whole batch, then the rANS encode on both (cut as _rans_cut_compare
+    says); on the hybrid the host codes the cmd streams, so only the
+    literals' pass and its rANS encode.  Returns {kernel name: entry},
+    the rANS encode's launches summed."""
+    got = _first_batch(data, res, billing)
+    hybrid = all(g.cmd is not None for g in got)
     print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B, profile "
-          f"{profile_for_options(res)}, quality {res.quality}")
+          f"{profile_for_options(res)}, quality {res.quality}, cmd streams "
+          f"{'on the host (the hybrid)' if hybrid else 'on the card'}")
     out, rans = {}, []
-    if all(g.cmd_row is not None for g in got):
-        out["cmd_pass"], st, fr, n = _cmd_pass_compare(got, device, tag, smi)
-    else:
-        out["deferred_pass"], st, fr, n = _generic_compare(
-            got, res, device, tag, smi, job="cmd_generic")
-    rans.append(_rans_cut_compare(st, fr, n, tag, "cmd lanes", smi))
+    if not hybrid:
+        if all(g.cmd_row is not None for g in got):
+            out["cmd_pass"], st, fr, n = _cmd_pass_compare(got, device, tag,
+                                                           smi)
+        else:
+            out["deferred_pass"], st, fr, n = _generic_compare(
+                got, res, device, tag, smi, job="cmd_generic")
+        rans.append(_rans_cut_compare(st, fr, n, tag, "cmd lanes", smi))
     if all(g.lit_row is not None for g in got):
         out["lit_pass"], st, fr, n = _lit_pass_compare(got, device, tag, smi)
     else:
@@ -2068,7 +2102,8 @@ ADAPTIVE_KERNELS = {"model_pass": model_pass, "encode_lanes": rans_encode}
 def _deferred_option_path(data: bytes, opts, device, tag: str, smi: str,
                           warm: bool = False, decode_cmp: bool = True,
                           golden_ref: bool = False) -> dict:
-    """One option on the uniform lanes at chunk 256: the host-only
+    """One option at chunk 256, on the hybrid or the uniform lanes as
+    native.supports routes it: the host-only
     reference, the kernels on the first batch (_deferred_compare), the
     decode kernel on the container's first lane group (cut at
     DEC_CMP_CHUNKS; cm containers only), one timed encode through
@@ -2129,11 +2164,13 @@ def _adaptive_option_path(data: bytes, opts, device, tag: str,
 
 
 def phase_detect(records: bytes, device, smi: str) -> dict:
-    """Stride and speed detection on the record corpus, deferred: a
+    """Stride and speed detection on the record corpus, deferred: the
+    hybrid (detection resolved into a stride and speeds, which the
+    mechanical trace takes), so the host codes the cmd streams; a
     detected stride > 1 keeps the context map (the mix profile), so the
-    cmd streams take the cmd pass and the literals the generic pass;
-    one warm and one timed encode; the round trip decodes on the host
-    (the mix profile, as in the reference)."""
+    literals take the generic pass; one warm and one timed encode; the
+    round trip decodes on the host (the mix profile, as in the
+    reference)."""
     opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK,
                             stride_detection_quality=1,
                             speed_detection_quality=1)
@@ -2152,9 +2189,10 @@ def phase_detect_adaptive(records: bytes, device, smi: str) -> dict:
 
 
 def phase_speeds(data: bytes, device, smi: str) -> dict:
-    """Speed detection on the text corpus's head at chunk 256: stride 1
-    keeps the cm profile, so kernel 3 codes the literals at the detected
-    speeds and kernel 1 decodes them."""
+    """Speed detection on the text corpus's head at chunk 256, on the
+    hybrid (the host codes the cmd streams): stride 1 keeps the cm
+    profile, so kernel 3 codes the literals at the detected speeds and
+    kernel 1 decodes them."""
     opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK,
                             speed_detection_quality=1)
     return _deferred_option_path(data, opts, device, "speeds", smi)
@@ -2231,6 +2269,239 @@ def phase_host_options(text: bytes, records: bytes, smi: str) -> None:
         print(f"[host-{name}] phase {time.perf_counter() - t_all:.1f} s")
 
 
+# ------------------------------- the user surface: billing, CLI, streams
+
+BILL_BYTES = 16 << 20        # billing: the corpus's first 16 MiB
+BILL_CPU_BYTES = 256 << 10   # the billing dict against a CPU run's (one
+                             # frame at chunk 256)
+BILL_AD_CPU_BYTES = 16 << 10  # the same at chunk 0, at metablock 2^12:
+BILL_AD_CPU_MB = 1 << 12      # the plain model pass takes ~2 ms a step
+STREAM_BYTES = 16 << 20      # the streaming adapters: the first 16 MiB,
+STREAM_PIECE = 1 << 20       # written and read in 1 MiB pieces
+ALL_KERNELS = {m.NAME: m for m in KERNEL_MODULES}
+
+
+def _bill_total(bits: dict) -> str:
+    """The TOTAL line of codec/billing.format_table's table."""
+    return " ".join(billing.format_table(bits, 1, 1).splitlines()[-2].split())
+
+
+def _billed_cpu_compare(data: bytes, opts, tag: str, smi: str) -> None:
+    """compress(billing_out=) on the card against a device="cpu" run (the
+    plain versions) on `data`: the same billing dict, __detail__
+    included, and the same container."""
+    t0 = time.perf_counter()
+    cpu_bits: dict = {}
+    cpu_blob = dt.compress(data, opts, device="cpu", billing_out=cpu_bits)
+    t_cpu = time.perf_counter() - t0
+    bits: dict = {}
+    blob = dt.compress(data, opts, billing_out=bits)
+    assert bits == cpu_bits, f"[{tag}] the card's billing differs from " \
+        "the CPU run's"
+    assert blob == cpu_blob, f"[{tag}] the containers differ"
+    print(f"[{tag}] billing on the card == the device='cpu' run's on the "
+          f"first {len(data)} bytes at metablock {opts.metablock_size} "
+          f"({len(bits) - 1} designations and the per-CDF report; "
+          f"{_bill_total(bits)}; CPU run {t_cpu:.1f} s) | {smi}")
+
+
+def _billed_main(data: bytes, opts, kernels: dict, tag: str, smi: str):
+    """One compress through divans_tpu_torch.compress without billing
+    (after a warm one), then one with billing_out, the launches of
+    `kernels` and the frames by path counted over it (set to 0 just
+    before); the billed container equals the unbilled one.  Returns
+    (launches, billing dict)."""
+    dt.compress(data, opts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = dt.compress(data, opts)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    for m in kernels.values():
+        m.LAUNCHES = 0
+    encode.reset_stats()
+    bits: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = dt.compress(data, opts, billing_out=bits)
+    torch.cuda.synchronize()
+    t_bill = time.perf_counter() - t0
+    launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    stats = dict(encode.STATS)
+    assert blob == ref, f"[{tag}] the billed container differs"
+    assert all(launches.values()), f"[{tag}] a kernel never ran: {launches}"
+    route = f" | frames {stats}" if opts.chunk_nibbles else ""
+    print(f"[{tag}] compress(billing_out=) == compress on {len(data)} bytes "
+          f"({len(fmt.deserialize(blob)[2])} frames): billed "
+          f"{len(data) / t_bill / 1e6:.2f} MB/s ({t_bill:.3f} s), unbilled "
+          f"{len(data) / t_ref / 1e6:.2f} MB/s ({t_ref:.3f} s) | launches "
+          f"{launches}{route} | {smi}")
+    print(f"[{tag}] billing table: {_bill_total(bits)}, actual "
+          f"{len(blob)} bytes | {smi}")
+    return launches, bits
+
+
+def phase_bill(corpus: bytes, device, smi: str) -> dict:
+    """Billing at chunk 256 (quality 10) on the first BILL_BYTES: no
+    hybrid, so every cmd stream goes to the card's cmd pass (kernel 4),
+    the literals to kernel 3, both to kernel 2, and every step's freq
+    comes back.  The kernels against their plain versions on the first
+    batch (as a billed encode prepares it), the billed encode equal to
+    the unbilled one with every cmd stream on the card, and the billing
+    dict against a CPU run's on the first BILL_CPU_BYTES.  Returns
+    {kernel: (entry, launches)}."""
+    t_all = time.perf_counter()
+    data = corpus[:BILL_BYTES]
+    opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK)
+    cmp = _deferred_compare(data, opts, device, "bill-compare", smi,
+                            billing=True)
+    assert "cmd_pass" in cmp and "lit_pass" in cmp, sorted(cmp)
+    launches, _bits = _billed_main(
+        data, opts, {k: DEFERRED_KERNELS[k] for k in cmp}, "bill-main", smi)
+    n = len(data) // MB_SIZE
+    assert encode.STATS == _stats(cmd_device=n, lit_device=n), encode.STATS
+    _billed_cpu_compare(data[:BILL_CPU_BYTES], opts, "bill-cpu", smi)
+    print(f"[bill] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+    return {k: (e, launches[k]) for k, e in cmp.items()}
+
+
+def phase_bill_adaptive(corpus: bytes, device, smi: str) -> dict:
+    """Billing at chunk 0 (the defaults) on the first BILL_BYTES: A1 and
+    kernel 2, the freqs copied back from A1's lanes.  A1 on the path's
+    traces against its plain version (cut at OPT_AD_CMP_STEPS), kernel 2
+    on that compare's lanes (timed on the whole launch's), the billed
+    encode equal to the unbilled one, and the billing dict against a CPU
+    run's on the first BILL_AD_CPU_BYTES at metablock BILL_AD_CPU_MB.
+    Returns {kernel: (entry, launches)}."""
+    t_all = time.perf_counter()
+    data = corpus[:BILL_BYTES]
+    opts = dt.DivansOptions(metablock_size=MB_SIZE)
+    tag = "bill-ad-compare"
+    blocks = [data[o:o + MB_SIZE] for o in range(0, len(data), MB_SIZE)]
+    traces = _ad_traces(blocks, opts)
+    mp, full, cut = _model_pass_compare(traces, _ad_layout(opts).num_rows,
+                                        device, tag, smi, OPT_AD_CMP_STEPS)
+    re_ = _rans_compare(*cut, tag, "adaptive lanes of the model pass's "
+                        f"compare (the first {OPT_AD_CMP_STEPS} steps of "
+                        "each frame)", smi, main=full)
+    del full, cut
+    launches, _bits = _billed_main(data, opts, ADAPTIVE_KERNELS,
+                                   "bill-ad-main", smi)
+    assert launches == {"model_pass": 2, "encode_lanes": 1}, launches
+    _billed_cpu_compare(data[:BILL_AD_CPU_BYTES],
+                        dt.DivansOptions(metablock_size=BILL_AD_CPU_MB),
+                        "bill-ad-cpu", smi)
+    print(f"[bill-ad] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+    return {"model_pass": (mp, launches["model_pass"]),
+            "encode_lanes": (re_, launches["encode_lanes"])}
+
+
+def _launches_zeroed() -> None:
+    for m in KERNEL_MODULES:
+        m.LAUNCHES = 0
+
+
+def phase_cli(corpus: bytes, smi: str) -> None:
+    """The CLI on the corpus through files in a temporary directory:
+    `-c -timing`, whose container equals divans_tpu_torch.compress's and
+    whose stage table (tracelog.report) is printed, then `-d`, whose
+    output equals the corpus; the kernels each launched, counted; the
+    CLI's MB/s beside the API's."""
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = dt.compress(corpus)
+    t_api_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assert dt.decompress(ref) == corpus, "[cli] api round trip differs"
+    t_api_d = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        src, out, back = (os.path.join(d, n) for n in ("in", "out", "back"))
+        with open(src, "wb") as f:
+            f.write(corpus)
+        err = io.StringIO()
+        tracelog.clear()
+        _launches_zeroed()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["-c", "-timing", src, out])
+            t_c = time.perf_counter() - t0
+        finally:
+            tracelog.enable(False)
+            tracelog.clear()
+        launches_c = {k: m.LAUNCHES for k, m in ALL_KERNELS.items()
+                      if m.LAUNCHES}
+        with open(out, "rb") as f:
+            blob = f.read()
+        assert rc == 0 and blob == ref, "[cli] -c differs from compress"
+        table = err.getvalue().strip().splitlines()
+        assert table and table[-1].strip().endswith("TOTAL"), table
+        print(f"[cli] -c -timing {len(corpus)} bytes -> {len(blob)} == "
+              f"divans_tpu_torch.compress's container | launches "
+              f"{launches_c} | stage table (tracelog.report):")
+        for line in table:
+            print(f"[cli]   {line}")
+        _launches_zeroed()
+        t0 = time.perf_counter()
+        rc = cli.main(["-d", out, back])
+        t_d = time.perf_counter() - t0
+        launches_d = {k: m.LAUNCHES for k, m in ALL_KERNELS.items()
+                      if m.LAUNCHES}
+        with open(back, "rb") as f:
+            assert rc == 0 and f.read() == corpus, "[cli] -d differs"
+    assert launches_c == {"model_pass": 2, "rans_encode": 1}, launches_c
+    assert launches_d == {"scan_decode": 1}, launches_d
+    mb = len(corpus) / 1e6
+    print(f"[cli] -d == the corpus | launches {launches_d} | CLI -c "
+          f"{mb / t_c:.2f} MB/s, -d {mb / t_d:.2f} MB/s (files included) "
+          f"against compress {mb / t_api_c:.2f} MB/s, decompress "
+          f"{mb / t_api_d:.2f} MB/s (one run each) | {smi}")
+    print(f"[cli] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+
+
+def phase_stream(corpus: bytes, smi: str) -> None:
+    """The streaming adapters at the defaults on the first STREAM_BYTES,
+    written and read in STREAM_PIECE pieces, on the host (no kernel
+    launched, counted): the reader's output equals the input, and the
+    writer's container decodes through divans_tpu_torch.decompress on
+    the card (one scan launch)."""
+    t_all = time.perf_counter()
+    data = corpus[:STREAM_BYTES]
+    opts = dt.DivansOptions()
+    _launches_zeroed()
+    sink = io.BytesIO()
+    t0 = time.perf_counter()
+    w = io_adapters.CompressorWriter(sink, opts)
+    for off in range(0, len(data), STREAM_PIECE):
+        w.write(data[off:off + STREAM_PIECE])
+    w.flush_final()
+    t_w = time.perf_counter() - t0
+    blob = sink.getvalue()
+    t0 = time.perf_counter()
+    r = io_adapters.DecompressorReader(io.BytesIO(blob), opts)
+    got = bytearray()
+    while True:
+        piece = r.read(STREAM_PIECE)
+        if not piece:
+            break
+        got += piece
+    t_r = time.perf_counter() - t0
+    assert bytes(got) == data, "[stream] the reader's output differs"
+    host = {k: m.LAUNCHES for k, m in ALL_KERNELS.items() if m.LAUNCHES}
+    assert not host, f"[stream] the adapters launched kernels: {host}"
+    mb = len(data) / 1e6
+    print(f"[stream] CompressorWriter {len(data)} bytes in {STREAM_PIECE}-"
+          f"byte writes -> {len(blob)} ({len(fmt.deserialize(blob)[2])} "
+          f"frames) {mb / t_w:.2f} MB/s; DecompressorReader in "
+          f"{STREAM_PIECE}-byte reads == the input {mb / t_r:.2f} MB/s "
+          f"(host only, no kernel launched) | {smi}")
+    dec = _roundtrip(blob, data, {"scan_decode": scan_decode},
+                     "stream-roundtrip", smi)
+    assert dec == {"scan_decode": 1}, dec
+    print(f"[stream] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2279,6 +2550,15 @@ def main() -> int:
     phase_host_options(corpus, records, smi)
     print(f"[options] the option phases took "
           f"{time.perf_counter() - t_opts:.1f} s | {smi}")
+    # the user surface: billing at chunk 256 and 0, the CLI, the
+    # streaming adapters
+    t_surface = time.perf_counter()
+    bill = phase_bill(corpus, device, smi)
+    bill_ad = phase_bill_adaptive(corpus, device, smi)
+    phase_cli(corpus, smi)
+    phase_stream(corpus, smi)
+    print(f"[surface] the billing, CLI and stream phases took "
+          f"{time.perf_counter() - t_surface:.1f} s | {smi}")
     # one entry a kernel and path: its launches counted on that path's
     # run, its comparison made on that path's own inputs
     decode_src = "divans_tpu/codec/pallas_decode.py:182"
@@ -2357,7 +2637,9 @@ def main() -> int:
          "adaptive IR-optimizer level-1 decode"),
         (opt["opt2-ad"], "adaptive IR-optimizer level-2 encode",
          "adaptive IR-optimizer level-2 decode"),
-        (nocm, "quality-11 no-context-map encode", None)]
+        (nocm, "quality-11 no-context-map encode", None),
+        (bill, "bill", None),
+        (bill_ad, "bill-ad", None)]
     mods = {"cmd_pass": (cmd_pass, cmd_src), "lit_pass": (lit_pass, lit_src),
             "deferred_pass": (deferred_pass, generic_src),
             "encode_lanes": (rans_encode, rans_src),

@@ -3,24 +3,28 @@
 Both run on a device: "cuda" unless the caller passes device="cpu",
 where every kernel runs its plain PyTorch version; with neither and no
 CUDA they raise.  compress is byte-identical to divans_tpu.api.compress
-under every option (billing aside), and routes each option as the
-reference does:
+under every option, and routes each option as the reference does:
   * to the card (as divans_tpu/codec/jax_engine.compress runs them):
-    the default options, stride and speed detection (resolved first by
-    ir/detect.apply_detection), the IR optimizer and quality 11, with
-    or without the context map.  The adaptive profile
+    the default options, stride and speed detection, the IR optimizer
+    and quality 11, with or without the context map.  Detection is
+    resolved first (ir/detect.apply_detection) into a stride and
+    speeds, which the mechanical trace takes.  The adaptive profile
     (chunk_nibbles=0) is codec/adaptive.compress_frames: host traces,
     the per-nibble model pass and the rANS encode on the card.  The
     deferred profile (chunk_nibbles > 0) is codec/encode.compress_frames:
-    the hybrid path for the mechanical trace's own options (host C++
-    for the trace and the cmd stream, the card for the literals), else
-    the uniform device lanes (host command lists and traces, the card
-    codes both streams);
+    the hybrid path for the mechanical trace's options, detected ones
+    included (host C++ for the trace and the cmd stream, the card for
+    the literals), else the uniform device lanes (host command lists
+    and traces, the card codes both streams);
   * to the host (as jax_engine.compress sends them to its golden engine):
     block split, prior-bitmask masks, context-map clustering, external
     probabilities (ECDF) and streamed frames.  native.compress codes
     what its FSM covers, codec/engine_np.compress (the golden engine)
     the rest.
+compress(billing_out=) bills the bits of each substate as
+jax_engine.compress does: no hybrid (every deferred frame takes the
+uniform lanes), each frame's freqs copied back from the card's model
+passes in trace order, then codec/billing; host options bill nothing.
 decompress takes the profile from the container's flags: adaptive
 containers decode through codec/adaptive.decompress_frames (the scan on
 the card, flagged frames on the host), deferred ones through
@@ -32,10 +36,11 @@ given), decode on the golden engine whole, as in the reference.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from . import native
-from .codec import adaptive, decode, encode, engine_np
+from . import native, tracelog
+from .codec import adaptive, billing, decode, encode, engine_np
 from .codec.deferred import chunk_to_flags, flags_to_chunk
 from .codec.layout import (FLAG_PROFILES, PROFILE_FLAGS, ModelLayout,
                            PROFILES, profile_for_options)
@@ -71,7 +76,11 @@ def host_compress(data: bytes, options: DivansOptions) -> bytes:
 
 
 def compress(data: bytes, options: DivansOptions | None = None,
-             device=None) -> bytes:
+             device=None, billing_out: dict | None = None) -> bytes:
+    """The container of `data` under `options`.  With `billing_out` (a
+    dict) it also gets the bits each substate coded (codec/billing.bill)
+    and, under "__detail__", the per-CDF report (entropy_report); the
+    container is the same."""
     options = options or DivansOptions()
     dev = _device(device, "compress")
     if host_only(options):
@@ -83,17 +92,29 @@ def compress(data: bytes, options: DivansOptions | None = None,
     profile = profile_for_options(options)
     flags = PROFILE_FLAGS[profile] | chunk_to_flags(chunk)
     frames = []
+    bills = None if billing_out is None else []
     if data:
         layout = ModelLayout(PROFILES[profile], lo_bucketed=chunk > 0)
         mb = options.metablock_size
         blocks = [data[off:off + mb] for off in range(0, len(data), mb)]
         if chunk:
             frames = encode.compress_frames(blocks, options, layout, chunk,
-                                            dev)
+                                            dev, billing=bills)
         else:
-            frames = adaptive.compress_frames(blocks, options, layout, dev)
-    return fmt.serialize(frames, options.window_size, options.mb_log2,
-                         native.crc32c(data), flags=flags)
+            frames = adaptive.compress_frames(blocks, options, layout, dev,
+                                              billing=bills)
+    if bills:
+        traces = [t for t, _f in bills]
+        fpad = np.ones((len(bills), max(t.shape[0] for t in traces)),
+                       np.int32)
+        for i, (_t, f) in enumerate(bills):
+            fpad[i, :f.shape[0]] = f
+        billing_out.update(billing.bill(traces, fpad, layout))
+        billing_out["__detail__"] = billing.entropy_report(traces, fpad,
+                                                           layout)
+    with tracelog.span("encode/assemble", frames=len(frames)):
+        return fmt.serialize(frames, options.window_size, options.mb_log2,
+                             native.crc32c(data), flags=flags)
 
 
 def decompress(blob: bytes, device=None,

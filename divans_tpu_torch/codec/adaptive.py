@@ -42,6 +42,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import tracelog
 from ..ans import rans_encode
 from ..container import format as fmt
 from . import decode, encode, model_pass, scan_decode
@@ -96,54 +97,68 @@ def _host_frame(raw: bytes, options, layout):
 
 @torch.inference_mode()
 def compress_frames(blocks, options, layout, device,
-                    timing: dict | None = None) -> list[fmt.MetablockFrame]:
+                    timing: dict | None = None,
+                    billing: list | None = None) -> list[fmt.MetablockFrame]:
     """The adaptive encode of metablocks on `device` ("cuda", or "cpu"
     for the plain versions).  `timing` (a dict) gets the seconds of each
     stage (traces, upload, model_pass, rans, compaction, copy_back,
-    assembly) and the trace's upload bytes."""
+    assembly) and the trace's upload bytes.  `billing` (a list) gets
+    each frame's (trace, freqs in trace order), the freqs copied back
+    with the compacted words."""
     dev = torch.device(device)
     clock = _Clock(timing, dev)
-    with ThreadPoolExecutor(_pool_width()) as pool:
-        got = list(pool.map(lambda b: _host_frame(b, options, layout),
-                            blocks))
-    counts = [c for _t, c in got]
-    n_lane = max(1, max(max(c) for c in counts))
-    n_steps = np.array([t.shape[0] for t, _c in got], np.int32)
-    clock.mark("traces")
-    # the traces back to back on the device, copied frame by frame (no
-    # host copy of the whole)
-    trace_d = torch.empty((int(n_steps.sum()), model_pass.NCOLS),
-                          dtype=torch.int32, device=dev)
-    off = 0
-    for t, _c in got:
-        trace_d[off:off + t.shape[0]].copy_(torch.from_numpy(t))
-        off += t.shape[0]
-    n_steps_d = torch.from_numpy(n_steps).to(dev)
-    clock.mark("upload")
-    if timing is not None:
-        timing["upload_bytes"] = trace_d.numel() * 4 + n_steps.nbytes
-    starts, freqs, lane_n = model_pass.model_pass(trace_d, n_steps_d,
-                                                  layout.num_rows, n_lane)
-    clock.mark("model_pass")
-    words, flags, states = rans_encode.encode_lanes(starts, freqs, lane_n)
-    clock.mark("rans")
-    flat_w, header = rans_encode.compact_global(words, flags, lane_n,
-                                                states)
-    clock.mark("compaction")
-    header = header.cpu().numpy()
-    lane_n = lane_n.cpu().numpy()
-    host_counts = np.array(counts, np.int32).reshape(-1)
-    if not np.array_equal(lane_n, host_counts):
-        raise RuntimeError("the model pass's lane counts differ from the "
-                           "traces'")
-    flat_w = flat_w[:int(header[0].sum())].cpu().numpy()
-    clock.mark("copy_back")
-    lanes = rans_encode.assemble_global(flat_w, header[0], header[1],
-                                        host_counts.tolist())
-    frames = [fmt.MetablockFrame(len(blocks[i]), lanes[2 * i],
-                                 lanes[2 * i + 1])
-              for i in range(len(blocks))]
-    clock.mark("assembly")
+    with tracelog.span("encode/trace_build", blocks=len(blocks)):
+        with ThreadPoolExecutor(_pool_width()) as pool:
+            got = list(pool.map(lambda b: _host_frame(b, options, layout),
+                                blocks))
+        counts = [c for _t, c in got]
+        n_lane = max(1, max(max(c) for c in counts))
+        n_steps = np.array([t.shape[0] for t, _c in got], np.int32)
+        clock.mark("traces")
+    with tracelog.span("encode/model_pass", profile="adaptive"):
+        # the traces back to back on the device, copied frame by frame
+        # (no host copy of the whole)
+        trace_d = torch.empty((int(n_steps.sum()), model_pass.NCOLS),
+                              dtype=torch.int32, device=dev)
+        off = 0
+        for t, _c in got:
+            trace_d[off:off + t.shape[0]].copy_(torch.from_numpy(t))
+            off += t.shape[0]
+        n_steps_d = torch.from_numpy(n_steps).to(dev)
+        clock.mark("upload")
+        if timing is not None:
+            timing["upload_bytes"] = trace_d.numel() * 4 + n_steps.nbytes
+        starts, freqs, lane_n = model_pass.model_pass(trace_d, n_steps_d,
+                                                      layout.num_rows, n_lane)
+        clock.mark("model_pass")
+    with tracelog.span("encode/ans_lanes", lanes=2 * len(blocks)):
+        words, flags, states = rans_encode.encode_lanes(starts, freqs,
+                                                        lane_n)
+        clock.mark("rans")
+        flat_w, header = rans_encode.compact_global(words, flags, lane_n,
+                                                    states)
+        clock.mark("compaction")
+        header = header.cpu().numpy()
+        lane_n = lane_n.cpu().numpy()
+        host_counts = np.array(counts, np.int32).reshape(-1)
+        if not np.array_equal(lane_n, host_counts):
+            raise RuntimeError("the model pass's lane counts differ from "
+                               "the traces'")
+        flat_w = flat_w[:int(header[0].sum())].cpu().numpy()
+        if billing is not None:
+            freqs = freqs.cpu().numpy()
+        clock.mark("copy_back")
+    with tracelog.span("encode/assemble"):
+        lanes = rans_encode.assemble_global(flat_w, header[0], header[1],
+                                            host_counts.tolist())
+        frames = [fmt.MetablockFrame(len(blocks[i]), lanes[2 * i],
+                                     lanes[2 * i + 1])
+                  for i in range(len(blocks))]
+        clock.mark("assembly")
+    if billing is not None:
+        billing += [(t, encode.trace_order(t, freqs[2 * i, :nc],
+                                           freqs[2 * i + 1, :nl]))
+                    for i, (t, (nc, nl)) in enumerate(got)]
     return frames
 
 
@@ -156,18 +171,20 @@ def decompress_frames(frames, profile: str, device,
     and the host decodes, and the scan's max_steps."""
     dev = torch.device(device)
     clock = _Clock(timing, dev)
-    cs, cw, ls, lw, raw_len, window_size, max_steps = \
-        scan_decode.pack_frames(frames)
-    clock.mark("pack")
-    args = [torch.from_numpy(a).to(dev) for a in (cs, cw, ls, lw, raw_len)]
-    clock.mark("upload")
-    window, ok, _wpos = scan_decode.decode_scan(*args, profile, window_size,
-                                                max_steps)
-    clock.mark("scan")
-    ok = ok.cpu().numpy()
-    width = int(raw_len.max()) if len(frames) else 0
-    window = window[:, :width].cpu().numpy()
-    clock.mark("copy_back")
+    with tracelog.span("decode/device_pipeline", frames=len(frames)):
+        cs, cw, ls, lw, raw_len, window_size, max_steps = \
+            scan_decode.pack_frames(frames)
+        clock.mark("pack")
+        args = [torch.from_numpy(a).to(dev)
+                for a in (cs, cw, ls, lw, raw_len)]
+        clock.mark("upload")
+        window, ok, _wpos = scan_decode.decode_scan(*args, profile,
+                                                    window_size, max_steps)
+        clock.mark("scan")
+        ok = ok.cpu().numpy()
+        width = int(raw_len.max()) if len(frames) else 0
+        window = window[:, :width].cpu().numpy()
+        clock.mark("copy_back")
     if timing is not None:
         timing["max_steps"] = max_steps
     offsets = np.zeros(len(frames) + 1, np.int64)
@@ -181,13 +198,14 @@ def decompress_frames(frames, profile: str, device,
             flagged.append(i)
     layout = ModelLayout(PROFILES[profile], lo_bucketed=False)
     kinds = []
-    with ThreadPoolExecutor(_pool_width()) as pool:
+    with tracelog.span("decode/serial_frames", frames=len(flagged)), \
+            ThreadPoolExecutor(_pool_width()) as pool:
         for i, (raw, kind) in zip(flagged, pool.map(
                 lambda i: decode._host_decode(frames[i], layout, 0),
                 flagged)):
             out[offsets[i]:offsets[i + 1]] = np.frombuffer(raw, np.uint8)
             kinds.append(kind)
-    clock.mark("host")
+        clock.mark("host")
     STATS["scan_frames"] += len(frames) - len(flagged)
     STATS["host_frames"] += kinds.count("host")
     STATS["golden_frames"] += kinds.count("golden")

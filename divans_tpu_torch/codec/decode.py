@@ -30,7 +30,7 @@ from concurrent.futures import ThreadPoolExecutor, as_completed
 import numpy as np
 import torch
 
-from .. import constants, native
+from .. import constants, native, tracelog
 from ..options import DivansOptions
 from . import deferred, engine_np, lit_decode, lit_model
 from .deferred import SUB_LIT, lit_subs_split
@@ -232,10 +232,12 @@ def _host_decode(f, layout, chunk):
     if raw is not None:
         return raw, "host"
     opts = DivansOptions()
-    if chunk:
-        raw = deferred.decode_metablock(f.cmd, f.lit, f.raw_len, opts, chunk)
-    else:
-        raw = engine_np.decode_metablock(f.cmd, f.lit, f.raw_len, opts)
+    with tracelog.span("decode/golden_fallback", bytes=f.raw_len):
+        if chunk:
+            raw = deferred.decode_metablock(f.cmd, f.lit, f.raw_len, opts,
+                                            chunk)
+        else:
+            raw = engine_np.decode_metablock(f.cmd, f.lit, f.raw_len, opts)
     return raw, "golden"
 
 
@@ -327,7 +329,8 @@ def decompress_frames(frames, chunk: int, layout, device,
 
     finish_futs = []
     n_workers = max(1, min(8, os.cpu_count() or 2))
-    with ThreadPoolExecutor(n_workers) as ex, \
+    with tracelog.span("decode/device_pipeline", frames=len(frames)), \
+            ThreadPoolExecutor(n_workers) as ex, \
             ThreadPoolExecutor(N_FINISHERS) as finisher:
         futs = {ex.submit(one, frames[i]): i for i in range(len(frames))}
         ready: list = []

@@ -2,13 +2,15 @@
 divans_tpu/codec/jax_engine.compress.
 
   * Hybrid (`_compress_hybrid`, jax_engine.py:797), for the options the
-    mechanical trace covers (native.supports: quality <= 10): the host
-    codes each frame's cmd stream, the card its literals.
+    mechanical trace covers (native.supports: quality <= 10, detected
+    stride and speeds included): the host codes each frame's cmd
+    stream, the card its literals.
   * Uniform device lanes (jax_engine.py:984-1063 with
     `deferred_model_pass`, :610), for every other option the card takes
-    (quality 11, detected stride and speeds, the IR optimizer): each
-    frame's command list is traced on the host and the card codes both
-    streams, one cmd lane per frame.
+    (quality 11, the IR optimizer), and for every frame when the caller
+    bills (`billing`, as jax_engine.compress skips its hybrid for
+    billing_out): each frame is traced on the host and the card codes
+    both streams, one cmd lane per frame.
 
 Per metablock (frame), on a pool of up to 8 host threads: the trace
 (frame_trace: the mechanical FSM, or the matcher's command list
@@ -49,7 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracelog
 from ..ans import rans_encode
 from ..container import format as fmt
 from ..ir.matcher import build_commands
@@ -89,6 +91,7 @@ class HostFrame(NamedTuple):
     lit_row: np.ndarray | None     # uint16 literal bytes (pack_lit)
     lit_spd: np.ndarray | None     # int32[6]
     lit_trace: np.ndarray | None   # int32 [n, 10] rebased lit trace, checked
+    trace: np.ndarray | None = None  # the frame's whole trace (billing)
 
 
 def _rebase_lit(t: np.ndarray, lit_base: int) -> np.ndarray:
@@ -144,11 +147,11 @@ def in_envelope(layout) -> bool:
 
 def frame_trace(raw: bytes, options, layout) -> np.ndarray:
     """One frame's trace: the mechanical FSM for the options
-    native.supports takes (the hybrid path), else (or where that FSM
-    abstains) the matcher's command list (ir/matcher.build_commands:
-    quality 11, detected options, the IR optimizer) through the native
-    FSM, or through the Python trace FSM (codec/trace) where native code
-    refuses the list (quality 11 without the context map)."""
+    native.supports takes, else (or where that FSM abstains) the
+    matcher's command list (ir/matcher.build_commands: quality 11, the
+    IR optimizer) through the native FSM, or through the Python trace
+    FSM (codec/trace) where native code refuses the list (quality 11
+    without the context map)."""
     if native.supports(options):
         trace = native.build_trace(raw, options, layout)
         if trace is not None:
@@ -160,17 +163,20 @@ def frame_trace(raw: bytes, options, layout) -> np.ndarray:
     return trace
 
 
-def host_frame(raw: bytes, options, layout, chunk: int) -> HostFrame:
+def host_frame(raw: bytes, options, layout, chunk: int,
+               billing: bool = False) -> HostFrame:
     """Trace one frame and prepare each stream for the pass that takes
     it.  The cmd stream is coded here on the hybrid path and goes to the
-    card on the uniform path (options beyond the mechanical trace, as in
-    the reference): to the cmd pass when its speeds are constant per
-    row, else to the generic pass.  The literals go to the lit pass when
-    pack_lit takes them, else to the generic pass.  A trace for the
-    generic pass is range-checked here (deferred_pass.check_lane)."""
+    card on the uniform path (options beyond the mechanical trace, or
+    `billing`, as in the reference): to the cmd pass when its speeds are
+    constant per row, else to the generic pass.  The literals go to the
+    lit pass when pack_lit takes them, else to the generic pass.  A
+    trace for the generic pass is range-checked here
+    (deferred_pass.check_lane).  With `billing` the frame's trace is
+    kept (HostFrame.trace)."""
     lit_base = layout.segments["lit_hi"][0]
     trace = frame_trace(raw, options, layout)
-    hybrid = native.supports(options)
+    hybrid = native.supports(options) and not billing
     packed = native.pack_lit(trace, lit_base) if in_envelope(layout) \
         else None
     cmd_t = lit_t = None
@@ -194,7 +200,8 @@ def host_frame(raw: bytes, options, layout, chunk: int) -> HostFrame:
         deferred_pass.check_lane(cmd_t, lit_base)
     if lit_t is not None:
         deferred_pass.check_lane(lit_t, layout.num_rows - lit_base + 1)
-    return HostFrame(cmd_b, cmd_row, cmd_spd, cmd_t, lit_row, lit_spd, lit_t)
+    return HostFrame(cmd_b, cmd_row, cmd_spd, cmd_t, lit_row, lit_spd, lit_t,
+                     trace if billing else None)
 
 
 def batch_lanes(host_results):
@@ -291,15 +298,17 @@ def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def issue_batch(jobs, device, marks=None):
+def issue_batch(jobs, device, marks=None, keep_freqs: bool = False):
     """The device side of one batch: for each job (name, host arrays,
     scalar arguments; batch_jobs), upload, model pass (PASSES[name]),
     rANS encode and compaction; then the start of the copy back.
     Returns ([(flat, header)] per job, event): host tensors and, on the
     card, the CUDA event that marks the end of their copy (None on the
-    CPU).  `marks` (on the card): a list that gets (stage, CUDA event)
-    recorded at the start of each stage (f"{name}_pass", f"{name}_rans",
-    f"{name}_compact" per job, "copy"), then ("end", event)."""
+    CPU).  With `keep_freqs` each job's tuple also holds the model
+    pass's freqs [B, N], in the same copy.  `marks` (on the card): a
+    list that gets (stage, CUDA event) recorded at the start of each
+    stage (f"{name}_pass", f"{name}_rans", f"{name}_compact" per job,
+    "copy"), then ("end", event)."""
     dev = torch.device(device)
 
     def mark(stage):
@@ -317,81 +326,122 @@ def issue_batch(jobs, device, marks=None):
         mark(f"{name}_rans")
         words, flags, states = rans_encode.encode_lanes(starts, freqs, counts)
         mark(f"{name}_compact")
-        outs.append(rans_encode.compact_global(words, flags, counts, states))
+        out = rans_encode.compact_global(words, flags, counts, states)
+        outs.append((*out, freqs) if keep_freqs else out)
     if dev.type != "cuda":
         return outs, None
     mark("copy")
     host = []
-    for flat, header in outs:
-        pair = []
-        for t in (flat, header):
+    for out in outs:
+        copies = []
+        for t in out:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t, non_blocking=True)
-            pair.append(h)
-        host.append(tuple(pair))
+            copies.append(h)
+        host.append(tuple(copies))
     mark("end")
     event = torch.cuda.Event()
     event.record()
     return host, event
 
 
-def pull_batch(outs, event, lane_counts) -> list[list[bytes]]:
-    """Wait for a batch's copy, then each stream's per-lane wire bytes."""
+def pull_batch(outs, event, lane_counts):
+    """Wait for a batch's copy, then per job (its lanes' wire bytes, its
+    lanes' freqs as numpy arrays cut to each lane's count, or None
+    without issue_batch's keep_freqs)."""
     if event is not None:
         event.synchronize()
     res = []
-    for (flat, header), counts in zip(outs, lane_counts):
+    for (flat, header, *kept), counts in zip(outs, lane_counts):
         header = header.numpy()
         total = int(header[0].sum())
-        res.append(rans_encode.assemble_global(flat[:total].numpy(),
-                                               header[0], header[1], counts))
+        lanes = rans_encode.assemble_global(flat[:total].numpy(), header[0],
+                                            header[1], counts)
+        lane_f = None
+        if kept:
+            f = kept[0].numpy()
+            lane_f = [f[j, :n] for j, n in enumerate(counts)]
+        res.append((lanes, lane_f))
     return res
 
 
+def trace_order(trace: np.ndarray, cmd_freqs: np.ndarray,
+                lit_freqs: np.ndarray) -> np.ndarray:
+    """A frame's freqs in trace order: the cmd lane's on the steps of
+    stream 0, the lit lanes' (sub-streams in order) on those of stream
+    1."""
+    lit = trace[:, 2] == 1
+    if (len(cmd_freqs), len(lit_freqs)) != (int((~lit).sum()),
+                                            int(lit.sum())):
+        raise RuntimeError("the model passes' lane counts differ from the "
+                           "trace's")
+    out = np.empty(trace.shape[0], np.int32)
+    out[~lit] = cmd_freqs
+    out[lit] = lit_freqs
+    return out
+
+
 def compress_frames(blocks, options, layout, chunk: int, device,
-                    timing: list | None = None) -> list[fmt.MetablockFrame]:
+                    timing: list | None = None,
+                    billing: list | None = None) -> list[fmt.MetablockFrame]:
     """Deferred encode of metablocks on `device` ("cuda", or "cpu" for
     the plain versions); the frames equal native.compress's.  With
     `timing` (on the card), each batch appends (its marks, as in
     issue_batch; the seconds the issuing thread waited for the batch's
-    host work)."""
+    host work).  With `billing` (a list), every frame takes the uniform
+    lanes, and the list gets each frame's (trace, freqs in trace
+    order)."""
     n = len(blocks)
+    bill = billing is not None
     cmd: list = [None] * n
     lit: list = [None] * n
+    traces: list = [None] * n
+    freqs: dict = {"cmd": [None] * n, "lit": [None] * n}
     pulls = []
     n_workers = max(1, min(8, os.cpu_count() or 1))
     with ThreadPoolExecutor(n_workers) as pool, \
             ThreadPoolExecutor(1) as puller:
-        futs = [pool.submit(host_frame, b, options, layout, chunk)
+        futs = [pool.submit(host_frame, b, options, layout, chunk, bill)
                 for b in blocks]
         for lo in range(0, n, HYBRID_BATCH):
             idxs = range(lo, min(lo + HYBRID_BATCH, n))
             t_wait = time.perf_counter()
-            got = [futs[i].result() for i in idxs]
+            with tracelog.span("encode/host_cmd_wait", frames=len(idxs)):
+                got = [futs[i].result() for i in idxs]
             t_wait = time.perf_counter() - t_wait
             for i, g in zip(idxs, got):
                 cmd[i] = g.cmd
-            jobs, places = batch_jobs(got, idxs, layout, chunk)
-            for (name, _a, _p), (stream, frames) in zip(jobs, places):
-                key = "device" if name == stream else "generic"
-                STATS[f"{stream}_{key}"] += len(frames)
-            STATS["cmd_host"] += sum(g.cmd is not None for g in got)
-            if not jobs:
-                continue
-            marks = None
-            if timing is not None:
-                marks = []
-                timing.append((marks, t_wait))
-            outs, event = issue_batch(jobs, device, marks)
-            counts = [arrays[-1].tolist() for _n, arrays, _p in jobs]
-            pulls.append((places, puller.submit(pull_batch, outs, event,
-                                                counts)))
-        for places, fut in pulls:
-            for (stream, frames), lanes in zip(places, fut.result()):
-                for i, off, k in frames:
-                    if stream == "cmd":
-                        cmd[i] = lanes[off]
-                    else:
-                        lit[i] = lit_subs_join(lanes[off:off + k])
+                traces[i] = g.trace
+            with tracelog.span("encode/lit_dispatch", frames=len(idxs)):
+                jobs, places = batch_jobs(got, idxs, layout, chunk)
+                for (name, _a, _p), (stream, frames) in zip(jobs, places):
+                    key = "device" if name == stream else "generic"
+                    STATS[f"{stream}_{key}"] += len(frames)
+                STATS["cmd_host"] += sum(g.cmd is not None for g in got)
+                if not jobs:
+                    continue
+                marks = None
+                if timing is not None:
+                    marks = []
+                    timing.append((marks, t_wait))
+                outs, event = issue_batch(jobs, device, marks, bill)
+                counts = [arrays[-1].tolist() for _n, arrays, _p in jobs]
+                pulls.append((places, puller.submit(pull_batch, outs, event,
+                                                    counts)))
+        with tracelog.span("encode/lit_pull", batches=len(pulls)):
+            for places, fut in pulls:
+                for (stream, frames), (lanes, lane_f) in zip(places,
+                                                             fut.result()):
+                    for i, off, k in frames:
+                        if stream == "cmd":
+                            cmd[i] = lanes[off]
+                        else:
+                            lit[i] = lit_subs_join(lanes[off:off + k])
+                        if lane_f is not None:
+                            freqs[stream][i] = np.concatenate(
+                                lane_f[off:off + k])
+    if bill:
+        billing += [(t, trace_order(t, c, f)) for t, c, f in
+                    zip(traces, freqs["cmd"], freqs["lit"])]
     return [fmt.MetablockFrame(len(blocks[i]), cmd[i], lit[i])
             for i in range(n)]

@@ -33,7 +33,7 @@ import threading
 
 import numpy as np
 
-from . import constants
+from . import constants, tracelog
 from .codec.layout import ModelLayout, PROFILES
 from .errors import CorruptStream, ErrCode
 from .options import DivansOptions
@@ -190,13 +190,12 @@ def supports_trace(options: DivansOptions) -> bool:
 
 def supports(options: DivansOptions) -> bool:
     """Does the hybrid encode (the mechanical trace, the cmd stream coded
-    on the host) cover these options?  The mechanical trace's options
-    with no detection asked: detected options take the command-list
-    route on the card, as the reference's device engine runs them."""
-    return (supports_trace(options)
-            and not options.stride_detection_quality
-            and not options.speed_detection_quality
-            and not options.prior_bitmask_detection)
+    on the host) cover these options?  Exactly the mechanical trace's
+    options, as divans_tpu.native.supports: detection is resolved before
+    (ir/detect.apply_detection) into a stride and speeds, which the
+    trace takes.  Prior-bitmask detection never reaches this test
+    (api.host_only keeps it on the host)."""
+    return supports_trace(options)
 
 
 def find_matches(raw: bytes, quality: int) -> np.ndarray:
@@ -501,11 +500,12 @@ def compress(data: bytes,
     mb = options.metablock_size
     blocks = [data[off:off + mb] for off in range(0, len(data), mb)]
     # metablocks are independent; ctypes releases the GIL
-    if len(blocks) > 1:
-        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
-            results = list(ex.map(one, blocks))
-    else:
-        results = [one(b) for b in blocks]
+    with tracelog.span("encode/native_serial", bytes=len(data)):
+        if len(blocks) > 1:
+            with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+                results = list(ex.map(one, blocks))
+        else:
+            results = [one(b) for b in blocks]
     if any(r is None for r in results):
         return None
     used_split = any(r[1] for r in results)
@@ -662,15 +662,17 @@ def decompress(blob: bytes) -> bytes:
     def one(f):
         raw = None
         if layout is not None:
-            raw = decode_metablock(f.cmd, f.lit, f.raw_len,
-                                   profile != "stride", layout, chunk)
+            with tracelog.span("decode/native_serial", bytes=f.raw_len):
+                raw = decode_metablock(f.cmd, f.lit, f.raw_len,
+                                       profile != "stride", layout, chunk)
         if raw is None:
-            if chunk:
-                raw = deferred.decode_metablock(f.cmd, f.lit, f.raw_len,
-                                                opts, chunk)
-            else:
-                raw = engine_np.decode_metablock(f.cmd, f.lit, f.raw_len,
-                                                 opts)
+            with tracelog.span("decode/golden_fallback", bytes=f.raw_len):
+                if chunk:
+                    raw = deferred.decode_metablock(f.cmd, f.lit, f.raw_len,
+                                                    opts, chunk)
+                else:
+                    raw = engine_np.decode_metablock(f.cmd, f.lit,
+                                                     f.raw_len, opts)
         return raw
 
     if len(frames) > 1:

@@ -174,14 +174,9 @@ def test_q11_no_context_map_deferred_on_the_card_route(dictionary_indexes):
     assert port.decompress(blob, device="cpu") == data
 
 
-@pytest.mark.parametrize("name,stats", [
-    ("detect_deferred", dict(cmd_device=2, lit_generic=2)),
-    ("speeds_deferred", dict(cmd_device=2, lit_device=2)),
-    ("optimizer1_deferred", dict(cmd_device=2, lit_device=2))])
-def test_card_routes_take_the_uniform_lanes(name, stats):
-    """Detected and optimized options take the uniform lanes: no cmd
-    stream on the host; a detected stride puts the literals on the
-    generic pass (the mix profile), detected speeds keep the lit pass."""
+def _route(name, stats):
+    """Compress CASES[name] on the CPU; encode.STATS must be `stats`
+    (every other count 0)."""
     kw, kind, n, mb = CASES[name]
     data = DATA[kind](n, seed=sum(map(ord, name)))
     _reset()
@@ -190,6 +185,26 @@ def test_card_routes_take_the_uniform_lanes(name, stats):
     want = dict.fromkeys(encode.STATS, 0)
     want.update(stats)
     assert encode.STATS == want
+
+
+@pytest.mark.parametrize("name,stats", [
+    ("optimizer1_deferred", dict(cmd_device=2, lit_device=2))])
+def test_card_routes_take_the_uniform_lanes(name, stats):
+    """Optimized options take the uniform lanes: no cmd stream on the
+    host, the literals on the lit pass."""
+    _route(name, stats)
+
+
+@pytest.mark.parametrize("name,stats", [
+    ("detect_deferred", dict(cmd_host=2, lit_generic=2)),
+    ("speeds_deferred", dict(cmd_host=2, lit_device=2))])
+def test_detected_options_take_the_hybrid(name, stats):
+    """Detected options take the hybrid, as in the reference (detection
+    is resolved into a stride and speeds the mechanical trace takes):
+    the cmd streams coded on the host; a detected stride puts the
+    literals on the generic pass (the mix profile), detected speeds keep
+    the lit pass."""
+    _route(name, stats)
 
 
 # ------------------------------------------------------ modules under them

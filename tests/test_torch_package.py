@@ -39,13 +39,16 @@ def test_import_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-# the host modules of the golden engine and the options (copies of the
-# JAX package's modules that import no JAX: the port keeps its own)
+# the host modules of the golden engine and the options, and the user
+# surface (stage tracing, billing, the IR text, the CLI, the streaming
+# adapters): copies of the JAX package's modules that import no JAX, of
+# which the port keeps its own
 HOST_MODULES = ["probability.scalar", "probability.blend_cdf",
                 "probability.external_cdf", "ans.coder_np", "codec.model",
                 "codec.engine_np", "codec.deferred", "codec.trace",
                 "ir.detect", "ir.optimize", "ir.blocks", "ir.cmaps",
-                "ir.matcher"]
+                "ir.matcher", "tracelog", "codec.billing", "ir.ir_text",
+                "cli", "io_adapters"]
 
 
 def test_host_modules_load_no_jax():
