@@ -169,7 +169,24 @@ Phases, each printing its line; any failure raises and exits non-zero:
  28. the streaming adapters (io_adapters) on the first 16 MiB at the
      defaults in 1 MiB writes and reads, on the host (no launch): the
      reader's output equals the input, the writer's container decodes
-     through decompress on the card (one scan launch).
+     through decompress on the card (one scan launch);
+ 29. metablock data parallelism (parallel/dist, phase_dist) on the first
+     16 MiB (64 frames) on two meshes, make_mesh() (every visible card)
+     and four shards of card 0 on four streams: the sharded encode step
+     at chunk 256 (the cm traces split by stream, the literals cut into
+     32 KiB sub-streams, kernel 5 on both streams, then kernel 2) and at
+     chunk 0 (the adaptive traces, A1 on each stream's sub-traces, then
+     kernel 2), each step timed by the host clock and by CUDA events, the
+     container assembled in frame order equal to native.compress's and
+     the same on both meshes; kernel 5 (whole), A1 (each lane's first
+     2,048 steps) and kernel 2 (each lane's first 16,384 steps) against
+     their plain versions on each shard's first lanes; the sharded decode
+     step of the chunk-256 container on the four shards (every literal
+     sub-stream one a lane, 512 lanes a step; kernel 1 against its plain
+     version on the first shard's first 32 chunks), the scripts executed
+     into the 16 MiB; with more than one card, compress and decompress
+     with device="cuda:N" on the last card (else a line says this was not
+     reached).
 Each path's launches are counted with the counts set to 0 just before
 its run.  Then one JSON line with the kernels' numbers, one entry for
 each kernel and path (the kernel's launches on that path, its
@@ -202,11 +219,15 @@ from divans_tpu_torch.ans import rans_encode
 from divans_tpu_torch.codec import (adaptive, billing, cmd_pass, decode,
                                     deferred_pass, encode, lit_decode,
                                     lit_pass, model_pass, scan_decode)
-from divans_tpu_torch.codec.deferred import SUB_LIT, cmd_chunk, flags_to_chunk
-from divans_tpu_torch.codec.layout import (FLAG_PROFILES, ModelLayout,
-                                           PROFILES, profile_for_options)
+from divans_tpu_torch.codec.deferred import (SUB_LIT, chunk_to_flags,
+                                             cmd_chunk, flags_to_chunk,
+                                             lit_subs_join)
+from divans_tpu_torch.codec.layout import (FLAG_PROFILES, PROFILE_FLAGS,
+                                           ModelLayout, PROFILES,
+                                           profile_for_options)
 from divans_tpu_torch.container import format as fmt
 from divans_tpu_torch.ir.detect import apply_detection
+from divans_tpu_torch.parallel import dist
 
 CORPUS_BYTES = 48 << 20
 Q11_BYTES = 16 << 20     # the quality-11 corpus: the first 16 MiB
@@ -775,10 +796,21 @@ def phase_compare(blob: bytes, device, tag: str, smi: str,
     Returns the kernel's entry numbers (max_abs_err, ms, plain_ms,
     bound)."""
     queues, n_steps, layout, chunk, n_frames, n_lanes = _first_group(blob)
+    live = int((queues.counts > 0).sum())
+    assert live == n_lanes, f"{live} lanes have a job, expected {n_lanes}"
+    return _group_compare(queues, n_steps, layout, chunk, device, tag, smi,
+                          "first lane group", f" ({n_frames} frames)", cut)
+
+
+def _group_compare(queues, n_steps: int, layout, chunk: int, device,
+                   tag: str, smi: str, what: str, note: str = "",
+                   cut: int | None = None):
+    """phase_compare on a lane group's queues (decode.LaneQueues) of
+    n_steps chunks; `what` (and `note`) name the group on the printed
+    line."""
     q, perm, n_pass = decode.group_inputs(queues, chunk, layout, device)
     s = chunk // 2
     live = int((q["counts"] > 0).sum())
-    assert live == n_lanes, f"{live} lanes have a job, expected {n_lanes}"
     n_cmp = n_steps if cut is None else min(cut, n_steps)
     (out_p, carry_p), plain_ms = _cuda_ms_once(
         lambda: lit_decode.decode_group_plain(q, perm, n_pass, n_cmp, s))
@@ -800,8 +832,8 @@ def phase_compare(blob: bytes, device, tag: str, smi: str,
                                                      n_steps, s)
     e = _entry(ms, plain_ms, n_bytes, n_ops, max_err)
     if n_cmp < n_steps:
-        e["compare"] = f"the first lane group's first {n_cmp} chunks"
-    print(f"[{tag}] first lane group ({n_frames} frames): {n_steps} chunks "
+        e["compare"] = f"the {what}'s first {n_cmp} chunks"
+    print(f"[{tag}] {what}{note}: {n_steps} chunks "
           f"x {out_k.shape[0]} lanes (compared on {n_cmp}), {live} lanes "
           f"with a job, {n_dec} "
           f"bytes decoded over {lane_chunks} lane-chunks, {n_pass} renorm "
@@ -1128,6 +1160,16 @@ def _generic_compare(got, opts, device, tag: str, smi: str,
     jobs, _places = encode.batch_jobs(got, range(len(got)), _layout(opts),
                                       CHUNK)
     (arrays, (r, s)), = [(a, p) for name, a, p in jobs if name == job]
+    return _generic_lanes_compare(
+        arrays, r, s, device, tag, smi,
+        f"first batch: {len(got)} frames of {MB_SIZE} B | {job} lanes")
+
+
+def _generic_lanes_compare(arrays, r: int, s: int, device, tag: str,
+                           smi: str, what: str):
+    """_generic_compare on these lanes (host arrays: trace int32 [B, N,
+    10], counts int32 [B]; range-checked on the host) with r rows at
+    chunk s; `what` names them on the printed line."""
     trace, counts = (torch.from_numpy(a).to(device) for a in arrays)
     b, n = trace.shape[:2]
     (st_p, fr_p), plain_ms = _cuda_ms_once(
@@ -1149,8 +1191,8 @@ def _generic_compare(got, opts, device, tag: str, smi: str,
           f"{before['bound_ms']:.6f} ms by {before['bound_by']} ({int_ops} "
           f"ops) | {smi}")
     live = int((counts > 0).sum())
-    print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B | {job} "
-          f"lanes: {b} lanes, {live} live, {int(counts.sum())} steps, N "
+    print(f"[{tag}] {what}: {b} lanes, {live} live, {int(counts.sum())} "
+          f"steps, N "
           f"{n}, {r} rows, chunk {s} | deferred_pass kernel == plain on "
           f"starts, freqs (max_abs_err {err}): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.2f} ms, bound {e['bound_ms']:.6f} ms by "
@@ -2502,6 +2544,273 @@ def phase_stream(corpus: bytes, smi: str) -> None:
     print(f"[stream] phase {time.perf_counter() - t_all:.1f} s | {smi}")
 
 
+# ------------------------------------------------ metablock data parallelism
+
+DIST_BYTES = 16 << 20     # [dist]: the corpus's first 16 MiB (64 frames)
+DIST_CMP_LANES = 16       # the compare's lanes: each shard's first ones
+DIST_SUB_LANES = 4 * decode.LANES   # the decode's lanes a step (4 shards)
+
+
+def _dist_span(timing: list) -> tuple[dict, list]:
+    """({device: ms from its first shard's start to its last shard's
+    end}, each shard's own ms) of a step's timing list (device, start
+    event, end event); events compare only on their own device."""
+    spans = {}
+    for dev in dict.fromkeys(d for d, _s, _e in timing):
+        evs = [(s, e) for d, s, e in timing if d == dev]
+        ref = evs[0][0]
+        spans[str(dev)] = (max(ref.elapsed_time(e) for _s, e in evs)
+                           - min(ref.elapsed_time(s) for s, _e in evs))
+    return spans, [s.elapsed_time(e) for _d, s, e in timing]
+
+
+def _dist_run(step, args, tag: str, smi: str) -> tuple:
+    """One call of a dist step after a warm one (which allocates the
+    pinned host buffers), with the kernels' counts set to 0 just before
+    it: (its outputs, the counts read just after); prints its host clock
+    (and its host stages, tracelog) and CUDA-event times."""
+    step(*args)
+    _launches_zeroed()
+    timing: list = []
+    tracelog.clear()
+    tracelog.enable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args, timing=timing)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tracelog.enable(False)
+    stages: dict = {}
+    for ev in tracelog.events():
+        stages[ev.name] = stages.get(ev.name, 0.0) + ev.dt
+    tracelog.clear()
+    launches = {k: m.LAUNCHES for k, m in ALL_KERNELS.items() if m.LAUNCHES}
+    spans, per = _dist_span(timing)
+    print(f"[{tag}] step {wall * 1e3:.1f} ms host clock ("
+          f"{', '.join(f'{k} {v * 1e3:.1f}' for k, v in stages.items())} "
+          f"ms); by CUDA events, each device from its first shard's start "
+          f"to its last shard's end: "
+          f"{', '.join(f'{d} {ms:.3f}' for d, ms in spans.items())} ms; "
+          f"each shard {', '.join(f'{ms:.3f}' for ms in per)} ms | "
+          f"launches {launches} | {smi}")
+    return out, launches
+
+
+def _dist_cmp_rows(mesh, b: int) -> list[int]:
+    """The compare's rows: each shard's first DIST_CMP_LANES // len(mesh)
+    rows of a batch of b."""
+    per, k = b // len(mesh), max(1, DIST_CMP_LANES // len(mesh))
+    return [i * per + j for i in range(len(mesh)) for j in range(min(k, per))]
+
+
+def _dist_encode(data: bytes, opts, traces, meshes, tag: str, smi: str):
+    """The sharded encode step of `data`'s frames (their `traces`) on each
+    mesh: cmd and lit sub-traces (at chunk > 0 the lit ones cut into
+    sub-streams), padded to every mesh's size; the container assembled in
+    frame order must equal native.compress's and be the same on every
+    mesh.  Returns (the container, the padded (cmd, lit) batches, r_cmd,
+    r_lit, the last mesh's launches)."""
+    chunk = opts.chunk_nibbles
+    profile = profile_for_options(opts)
+    layout = ModelLayout(PROFILES[profile], lo_bucketed=chunk > 0)
+    blocks = [data[o:o + MB_SIZE] for o in range(0, len(data), MB_SIZE)]
+    t0 = time.perf_counter()
+    ref = native.compress(data, opts)
+    t_ref = time.perf_counter() - t0
+    cmd_ts, lit_ts, _m, r_cmd, r_lit = encode.split_stream_traces(traces,
+                                                                  layout)
+    if chunk:
+        lit_ts, spans = encode.split_lit_sub_traces(lit_ts)
+    else:
+        spans = [(i, 1) for i in range(len(blocks))]
+    multiple = int(np.lcm.reduce([len(m) for m in meshes]))
+    ct = dist.pad_batch(deferred_pass.pad_traces(
+        cmd_ts, cmd_chunk(chunk) if chunk else 1), multiple)
+    lt = dist.pad_batch(deferred_pass.pad_traces(lit_ts, max(chunk, 1)),
+                        multiple)
+    print(f"[{tag}] {len(blocks)} frames of {MB_SIZE} B, chunk {chunk}, "
+          f"profile {profile}: cmd batch {ct.shape[0]} x {ct.shape[1]} steps "
+          f"({r_cmd} rows), lit batch {lt.shape[0]} x {lt.shape[1]} steps "
+          f"({r_lit} rows; {len(lit_ts)} "
+          f"{'sub-streams' if chunk else 'streams'}), padded with empty "
+          f"lanes to a multiple of {multiple}; native.compress "
+          f"{len(data) / t_ref / 1e6:.2f} MB/s | {smi}")
+    flags = PROFILE_FLAGS[profile] | chunk_to_flags(chunk)
+    blobs, launches = [], None
+    for mesh in meshes:
+        step = dist.sharded_encode_step(mesh, r_cmd, r_lit, chunk)
+        # shards x cards
+        name = f"{tag}-mesh{len(mesh)}x{len(set(mesh.devices))}"
+        ((cw, cn, cs), (lw, ln, ls)), launches = _dist_run(
+            step, (ct, lt), name, smi)
+        cmd = rans_encode.lanes_to_bytes(cw, cn, cs)
+        lit = rans_encode.lanes_to_bytes(lw, ln, ls)
+        assert not any(cmd[len(blocks):] + lit[len(lit_ts):]), \
+            f"[{name}] an empty lane coded words"
+        frames = [fmt.MetablockFrame(
+            len(b), cmd[i], lit_subs_join(lit[o:o + k]) if chunk else lit[o])
+            for i, (b, (o, k)) in enumerate(zip(blocks, spans))]
+        blob = fmt.serialize(frames, opts.window_size, opts.mb_log2,
+                             native.crc32c(data), flags=flags)
+        assert blob == ref, f"[{name}] the container differs from " \
+            "native.compress's"
+        blobs.append(blob)
+        print(f"[{name}] mesh {[str(d) for d in mesh.devices]}: the "
+              f"container ({len(blob)} B) == native.compress's | {smi}")
+    assert all(b == blobs[0] for b in blobs), "the meshes' containers differ"
+    return ref, (ct, lt), r_cmd, r_lit, launches
+
+
+def _dist_decode(blob: bytes, data: bytes, mesh, device, tag: str, smi: str):
+    """The sharded decode step on the chunk-256 container: every frame's
+    structure (native), its literal sub-streams one a lane in steps of
+    DIST_SUB_LANES lanes, the step on `mesh`, each frame's literals
+    reassembled and its script executed: the output must equal `data`.
+    Kernel 1 against its plain version on the first step's first shard's
+    first DEC_CMP_CHUNKS chunks.  Returns (entry, launches)."""
+    _w, _mb, frames, _crc, flags = fmt.deserialize(blob)
+    chunk = flags_to_chunk(flags)
+    s = chunk // 2
+    layout = ModelLayout(PROFILES["cm"], lo_bucketed=True)
+    with ThreadPoolExecutor(8) as ex:
+        scs = list(ex.map(lambda f: decode.decode_structure(f, chunk, layout),
+                          frames))
+    assert all(sc is not None for sc in scs), "a frame left the envelope"
+    streams, n_lits, lcmaps, spds, spans = decode.lane_jobs(
+        frames, list(enumerate(scs)))
+    lit = np.zeros(sum(n_lits), np.uint8)
+    lit_off = np.concatenate([[0], np.cumsum(n_lits)])
+    total, entry = {}, None
+    for lo in range(0, len(streams), DIST_SUB_LANES):
+        hi = min(lo + DIST_SUB_LANES, len(streams))
+        queues, n_steps, placement = decode.pack_lane_queues(
+            streams[lo:hi], n_lits[lo:hi], lcmaps[lo:hi], spds[lo:hi], chunk,
+            lanes=DIST_SUB_LANES)
+        assert int(queues.counts.max()) <= 1, "a lane holds two streams"
+        step = dist.sharded_decode_step(mesh, layout, chunk, n_steps)
+        (out, _cursor), launches = _dist_run(
+            step, (queues,), f"{tag}-step{lo // DIST_SUB_LANES}", smi)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        out = out.numpy()
+        for j, place in enumerate(placement, start=lo):
+            if place is not None:
+                lane, c_off = place
+                lit[lit_off[j]:lit_off[j + 1]] = \
+                    out[lane, c_off * s:c_off * s + n_lits[j]]
+        if entry is None:
+            entry = _group_compare(
+                decode.lane_slice(queues, 0, decode.LANES), n_steps, layout,
+                chunk, device, f"{tag}-compare", smi,
+                "first shard of the first step", cut=DEC_CMP_CHUNKS)
+    out_buf = np.empty(len(data), np.uint8)
+    offsets = np.concatenate([[0], np.cumsum([f.raw_len for f in frames])])
+    for i, (sc, (o, k)) in enumerate(zip(scs, spans)):
+        native.execute_script(sc, lit[lit_off[o]:lit_off[o + k]],
+                              out=out_buf[offsets[i]:offsets[i + 1]])
+    assert out_buf.tobytes() == data, f"[{tag}] the decode differs"
+    print(f"[{tag}] {len(frames)} frames, {len(streams)} literal sub-streams"
+          f" one a lane in {-(-len(streams) // DIST_SUB_LANES)} step(s) of "
+          f"{DIST_SUB_LANES} lanes on {[str(d) for d in mesh.devices]}; the "
+          f"scripts executed: == the {len(data)}-byte input | launches "
+          f"{total} | {smi}")
+    return entry, total.get(lit_decode.NAME, 0)
+
+
+def phase_dist(corpus: bytes, device, smi: str) -> dict:
+    """Metablock data parallelism (parallel/dist) on the first DIST_BYTES:
+    the sharded encode step at chunk 256 (kernel 5 and 2) and at chunk 0
+    (A1 and 2) on make_mesh() (every visible card) and on four shards of
+    card 0, each container equal to native.compress's and the same on
+    both meshes; each kernel against its plain version on each shard's
+    first lanes (kernel 5 whole, A1 on each lane's first OPT_AD_CMP_STEPS
+    steps, 2 on each lane's first RANS_CMP_STEPS); the sharded decode
+    step of the chunk-256 container on the four shards, equal to the
+    data.  With more than one card, compress and decompress on the last
+    one.  Returns each kernel's (entry, launches on the four-shard
+    mesh)."""
+    t_all = time.perf_counter()
+    data = corpus[:DIST_BYTES]
+    blocks = [data[o:o + MB_SIZE] for o in range(0, len(data), MB_SIZE)]
+    mesh4 = dist.make_mesh(["cuda:0"] * 4)
+    meshes = [dist.make_mesh(), mesh4]
+    out = {}
+    # chunk 256: the cm profile's mechanical traces, kernel 5 on both
+    # streams (cmd at cmd_chunk(256) = 64)
+    opts = dt.DivansOptions(metablock_size=MB_SIZE, chunk_nibbles=CHUNK)
+    with ThreadPoolExecutor(8) as ex:
+        traces = list(ex.map(
+            lambda b: encode.frame_trace(b, opts, _layout(opts)), blocks))
+    blob, (ct, lt), r_cmd, r_lit, launches = _dist_encode(
+        data, opts, traces, meshes, "dist", smi)
+    del traces
+    assert launches == {"deferred_pass": 8, "rans_encode": 8}, launches
+    gen, rans = [], []
+    for x, r, s, what in ((ct, r_cmd, cmd_chunk(CHUNK), "cmd"),
+                          (lt, r_lit, CHUNK, "lit")):
+        rows = _dist_cmp_rows(mesh4, x.shape[0])
+        arrays = (x[rows], np.count_nonzero(x[rows][:, :, 2] >= 0, axis=1)
+                  .astype(np.int32))
+        e, st, fr, n = _generic_lanes_compare(
+            arrays, r, s, device, "dist-compare", smi,
+            f"{what} lanes {rows[:4]}... (each shard's first)")
+        gen.append(e)
+        rans.append(_rans_cut_compare(st, fr, n, "dist-compare",
+                                      f"{what} lanes", smi))
+    out["deferred_pass"] = (_sum_entries(gen), launches["deferred_pass"])
+    out["encode_lanes"] = (_sum_entries(rans), launches["rans_encode"])
+    del ct, lt
+    dec, dec_launches = _dist_decode(blob, data, mesh4, device, "dist-dec",
+                                     smi)
+    out["decode_group"] = (dec, dec_launches)
+    # chunk 0: the adaptive traces, A1 on each stream's sub-traces
+    opts0 = dt.DivansOptions(metablock_size=MB_SIZE)
+    traces = _ad_traces(blocks, opts0)
+    blob0, (ct, lt), r_cmd, r_lit, launches = _dist_encode(
+        data, opts0, traces, meshes, "dist-ad", smi)
+    del traces
+    assert launches == {"model_pass": 16, "rans_encode": 8}, launches
+    a1, rans = [], []
+    for sid, (x, r, what) in enumerate(((ct, r_cmd, "cmd"),
+                                        (lt, r_lit, "lit"))):
+        rows = _dist_cmp_rows(mesh4, x.shape[0])
+        subs = [x[i][x[i, :, 2] >= 0] for i in rows]
+        e, (st, fr, n), _cut = _model_pass_compare(
+            subs, r, device, f"dist-ad-compare-{what}", smi,
+            steps=OPT_AD_CMP_STEPS)
+        a1.append(e)
+        rans.append(_rans_cut_compare(
+            st[sid::2].contiguous(), fr[sid::2].contiguous(),
+            n[sid::2].contiguous(), "dist-ad-compare", f"{what} lanes", smi))
+    out["model_pass"] = (_sum_entries(a1), launches["model_pass"])
+    out["encode_lanes-ad"] = (_sum_entries(rans), launches["rans_encode"])
+    del ct, lt
+    n_dev = torch.cuda.device_count()
+    if n_dev > 1:
+        last = f"cuda:{n_dev - 1}"
+        for o, ref in ((opts, blob), (opts0, blob0)):
+            _launches_zeroed()
+            got = dt.compress(data, o, device=last)
+            assert got == ref, f"[dist-guard] compress on {last} differs"
+            assert dt.decompress(got, device=last) == data, \
+                f"[dist-guard] decompress on {last} differs"
+            launches = {k: m.LAUNCHES for k, m in ALL_KERNELS.items()
+                        if m.LAUNCHES}
+            print(f"[dist-guard] chunk {o.chunk_nibbles}: compress and "
+                  f"decompress with device={last!r} == native.compress's "
+                  f"container and the data | launches {launches}; "
+                  f"make_mesh() ran one shard a card, {last} included | "
+                  f"{smi}")
+    else:
+        print(f"[dist-guard] not reached: {n_dev} card visible, so no "
+              f"compress or decompress on a card other than the current "
+              f"one, and make_mesh() has one shard | {smi}")
+    print(f"[dist] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2559,6 +2868,8 @@ def main() -> int:
     phase_stream(corpus, smi)
     print(f"[surface] the billing, CLI and stream phases took "
           f"{time.perf_counter() - t_surface:.1f} s | {smi}")
+    # metablock data parallelism: the sharded steps of parallel/dist
+    dist_k = phase_dist(corpus, device, smi)
     # one entry a kernel and path: its launches counted on that path's
     # run, its comparison made on that path's own inputs
     decode_src = "divans_tpu/codec/pallas_decode.py:182"
@@ -2652,6 +2963,16 @@ def main() -> int:
                 else enc_path
             rows.append((k_name, mods[k_name][0], path, e, launches,
                          mods[k_name][1]))
+    # the sharded steps on four shards of card 0: 5/dist, 2/dist,
+    # A1/dist-ad, 2/dist-ad, 1/dist
+    for key, path in (("deferred_pass", "dist encode"),
+                      ("encode_lanes", "dist encode"),
+                      ("model_pass", "dist adaptive encode"),
+                      ("encode_lanes-ad", "dist adaptive encode"),
+                      ("decode_group", "dist decode")):
+        k_name = key.split("-")[0]
+        rows.append((k_name, mods[k_name][0], path, *dist_k[key],
+                     mods[k_name][1]))
     kernels = [{
         "name": k_name, "path": path, "route": "cuda",
         "source": f"divans_tpu_torch/csrc/{mod.NAME}.cu",

@@ -73,11 +73,12 @@ def encode_lanes(starts, freqs, counts):
     states = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
         return words, flags, states
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dtpu_rans_encode(starts.data_ptr(), freqs.data_ptr(),
-                              counts.data_ptr(), words.data_ptr(),
-                              flags.data_ptr(), states.data_ptr(), b, n,
-                              stream)
+    with cuda_build.on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dtpu_rans_encode(starts.data_ptr(), freqs.data_ptr(),
+                                  counts.data_ptr(), words.data_ptr(),
+                                  flags.data_ptr(), states.data_ptr(), b, n,
+                                  stream)
     if rc != 0:
         raise RuntimeError(f"encode_lanes launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -140,6 +141,43 @@ def compact_global(words, flags, counts, states):
     flat = torch.zeros(b * n + 1, dtype=words.dtype, device=dev)
     flat.scatter_(0, pos, words.reshape(-1))
     return flat[:-1], torch.stack([nw, states])
+
+
+def compact_lanes(words, flags, counts):
+    """Each lane's emitted words at the front of its own row, on the
+    tensors' device: the reference's per-lane form (ans/kernels.py
+    `_encode_lane`).  Returns (int32 [B, N] holding each word's uint16
+    value in wire order, zeros past them; nwords int32 [B])."""
+    b, n = words.shape
+    dev = words.device
+    t = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    live = (flags != 0) & (t < counts[:, None])
+    live32 = live.to(torch.int32)
+    pos = torch.where(live, torch.cumsum(live32, dim=1, dtype=torch.int32)
+                      - 1, n).long()                     # n: dropped
+    out = torch.zeros((b, n + 1), dtype=torch.int32, device=dev)
+    out.scatter_(1, pos, words.to(torch.int32) & 0xFFFF)
+    return (out[:, :n].contiguous(),
+            torch.sum(live32, dim=1, dtype=torch.int32))
+
+
+def lanes_to_bytes(words, nwords, states) -> list[bytes]:
+    """Per-lane wire bytes from compact_lanes' form (host numpy): u32
+    final state (little-endian) ++ the lane's u16 words; a lane that
+    coded nothing (no word, the start state) is empty."""
+    words = np.asarray(words)
+    nwords = np.asarray(nwords).reshape(-1)
+    states = np.asarray(states).reshape(-1)
+    out = []
+    for lane in range(words.shape[0]):
+        k = int(nwords[lane])
+        if k == 0 and int(states[lane]) == ENC_START_STATE:
+            out.append(b"")
+            continue
+        buf = bytearray(int(states[lane]).to_bytes(4, "little"))
+        buf += words[lane, :k].astype("<u2").tobytes()
+        out.append(bytes(buf))
+    return out
 
 
 def assemble_global(flat, nw, states, lane_counts) -> list[bytes]:

@@ -1,6 +1,8 @@
 """One-shot API of the port: compress() and decompress().
 
-Both run on a device: "cuda" unless the caller passes device="cpu",
+Both run on a device: "cuda" unless the caller passes another
+("cuda:N", which the pipelines make the current device while they
+launch and record, and which raises if it is not there) or "cpu",
 where every kernel runs its plain PyTorch version; with neither and no
 CUDA they raise.  compress is byte-identical to divans_tpu.api.compress
 under every option, and routes each option as the reference does:
@@ -50,13 +52,19 @@ from .options import DivansOptions
 
 
 def _device(device, entry: str) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"divans_tpu_torch.{entry} runs on CUDA by "
-                               "default and no CUDA device is available; "
-                               "pass device='cpu' to run the plain versions")
-        return torch.device("cuda")
-    return torch.device(device)
+    """The device a call runs on: CUDA by default, or as given; a CUDA
+    device that is not there raises (the pipelines make it current)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"divans_tpu_torch.{entry} runs on CUDA by "
+                           "default and no CUDA device is available; "
+                           "pass device='cpu' to run the plain versions")
+    if dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise ValueError(f"divans_tpu_torch.{entry}: no device {dev}, "
+                         f"{torch.cuda.device_count()} visible")
+    return dev
 
 
 def host_only(options: DivansOptions) -> bool:

@@ -42,7 +42,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import tracelog
+from .. import cuda_build, tracelog
 from ..ans import rans_encode
 from ..container import format as fmt
 from . import decode, encode, model_pass, scan_decode
@@ -68,6 +68,7 @@ class _Clock:
 
     def __init__(self, timing: dict | None, dev: torch.device):
         self.timing = timing
+        self.dev = dev
         self.sync = timing is not None and dev.type == "cuda"
         self.t = time.perf_counter()
 
@@ -75,7 +76,7 @@ class _Clock:
         if self.timing is None:
             return
         if self.sync:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(self.dev)
         now = time.perf_counter()
         self.timing[stage] = self.timing.get(stage, 0.0) + now - self.t
         self.t = now
@@ -99,8 +100,9 @@ def _host_frame(raw: bytes, options, layout):
 def compress_frames(blocks, options, layout, device,
                     timing: dict | None = None,
                     billing: list | None = None) -> list[fmt.MetablockFrame]:
-    """The adaptive encode of metablocks on `device` ("cuda", or "cpu"
-    for the plain versions).  `timing` (a dict) gets the seconds of each
+    """The adaptive encode of metablocks on `device` ("cuda", "cuda:N",
+    made the current device for its device stages, or "cpu" for the
+    plain versions).  `timing` (a dict) gets the seconds of each
     stage (traces, upload, model_pass, rans, compaction, copy_back,
     assembly) and the trace's upload bytes.  `billing` (a list) gets
     each frame's (trace, freqs in trace order), the freqs copied back
@@ -115,7 +117,8 @@ def compress_frames(blocks, options, layout, device,
         n_lane = max(1, max(max(c) for c in counts))
         n_steps = np.array([t.shape[0] for t, _c in got], np.int32)
         clock.mark("traces")
-    with tracelog.span("encode/model_pass", profile="adaptive"):
+    with tracelog.span("encode/model_pass", profile="adaptive"), \
+            cuda_build.on_device(dev):
         # the traces back to back on the device, copied frame by frame
         # (no host copy of the whole)
         trace_d = torch.empty((int(n_steps.sum()), model_pass.NCOLS),
@@ -131,7 +134,8 @@ def compress_frames(blocks, options, layout, device,
         starts, freqs, lane_n = model_pass.model_pass(trace_d, n_steps_d,
                                                       layout.num_rows, n_lane)
         clock.mark("model_pass")
-    with tracelog.span("encode/ans_lanes", lanes=2 * len(blocks)):
+    with tracelog.span("encode/ans_lanes", lanes=2 * len(blocks)), \
+            cuda_build.on_device(dev):
         words, flags, states = rans_encode.encode_lanes(starts, freqs,
                                                         lane_n)
         clock.mark("rans")
@@ -165,13 +169,15 @@ def compress_frames(blocks, options, layout, device,
 @torch.inference_mode()
 def decompress_frames(frames, profile: str, device,
                       timing: dict | None = None) -> bytes:
-    """The adaptive decode of a container's frames on `device`: one scan
-    launch over all of them, the frames it flags on the host.  `timing`
+    """The adaptive decode of a container's frames on `device` (made the
+    current device for the scan and its copies): one scan launch over
+    all of them, the frames it flags on the host.  `timing`
     (a dict) gets the seconds of packing, upload, the scan, the copy back
     and the host decodes, and the scan's max_steps."""
     dev = torch.device(device)
     clock = _Clock(timing, dev)
-    with tracelog.span("decode/device_pipeline", frames=len(frames)):
+    with tracelog.span("decode/device_pipeline", frames=len(frames)), \
+            cuda_build.on_device(dev):
         cs, cw, ls, lw, raw_len, window_size, max_steps = \
             scan_decode.pack_frames(frames)
         clock.mark("pack")

@@ -129,11 +129,12 @@ def cmd_pass(packed, inc, lim, n_steps, s: int):
     freqs = torch.empty((b, n), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
         return starts, freqs
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dtpu_cmd_pass(packed.data_ptr(), n, inc.data_ptr(),
-                           lim.data_ptr(), n_steps.data_ptr(),
-                           starts.data_ptr(), freqs.data_ptr(), b, r, s,
-                           stream)
+    with cuda_build.on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dtpu_cmd_pass(packed.data_ptr(), n, inc.data_ptr(),
+                               lim.data_ptr(), n_steps.data_ptr(),
+                               starts.data_ptr(), freqs.data_ptr(), b, r, s,
+                               stream)
     if rc != 0:
         raise RuntimeError(f"cmd_pass launch failed: CUDA error {rc}")
     LAUNCHES += 1

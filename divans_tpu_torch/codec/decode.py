@@ -30,7 +30,7 @@ from concurrent.futures import ThreadPoolExecutor, as_completed
 import numpy as np
 import torch
 
-from .. import constants, native, tracelog
+from .. import constants, cuda_build, native, tracelog
 from ..options import DivansOptions
 from . import deferred, engine_np, lit_decode, lit_model
 from .deferred import SUB_LIT, lit_subs_split
@@ -171,6 +171,31 @@ def from_tpu_lane_arrays(arrays) -> LaneQueues:
                       spd_all.astype(np.int32), _unpack6(luts[:, 0]))
 
 
+def from_tpu_lit_lanes(arrays) -> LaneQueues:
+    """The JAX package's pack_lit_lanes arrays (states, words, n_lit
+    [L], lcmap_t [16, L] and luts [128, 128] 6-bit packed, spd [L, 6];
+    one stream a lane) as the port's LaneQueues with one queue entry a
+    lane, as the reference's _decode_lit_scan wraps them (every lane's
+    count 1, word offset 0)."""
+    states, words, n_lit, lcmap_t, luts, spd = [np.asarray(a)
+                                                for a in arrays]
+    lanes = states.shape[0]
+    return LaneQueues(words.astype(np.int32), np.ones(lanes, np.int32),
+                      states.astype(np.int32)[None],
+                      n_lit.astype(np.int32)[None],
+                      np.zeros((1, lanes), np.int32),
+                      _unpack6(lcmap_t.T)[None],
+                      spd.astype(np.int32)[None], _unpack6(luts[:, 0]))
+
+
+def lane_slice(queues: LaneQueues, lo: int, hi: int) -> LaneQueues:
+    """Lanes [lo, hi) of the queues (the luts whole)."""
+    return LaneQueues(queues.words[lo:hi], queues.counts[lo:hi],
+                      queues.state0[:, lo:hi], queues.n_lit[:, lo:hi],
+                      queues.woff[:, lo:hi], queues.lcmap[:, lo:hi],
+                      queues.spd[:, lo:hi], queues.luts)
+
+
 def group_inputs(queues: LaneQueues, chunk: int, layout, device):
     """A lane group's inputs to lit_decode.decode_group: (the queue
     tensors on `device`, perm int32[384], renorm passes a commit)."""
@@ -270,7 +295,8 @@ def lane_jobs(frames, ready):
 
 def decompress_frames(frames, chunk: int, layout, device,
                       timing: list | None = None) -> bytes:
-    """Full deferred decode of a frame list on `device`.
+    """Full deferred decode of a frame list on `device` (made the current
+    device while the groups are issued).
 
     Pipelining: all frames' structure passes are queued on a thread pool
     at once; frames gather into GROUPS in script-arrival order, sized by
@@ -330,6 +356,7 @@ def decompress_frames(frames, chunk: int, layout, device,
     finish_futs = []
     n_workers = max(1, min(8, os.cpu_count() or 2))
     with tracelog.span("decode/device_pipeline", frames=len(frames)), \
+            cuda_build.on_device(device), \
             ThreadPoolExecutor(n_workers) as ex, \
             ThreadPoolExecutor(N_FINISHERS) as finisher:
         futs = {ex.submit(one, frames[i]): i for i in range(len(frames))}

@@ -153,10 +153,12 @@ def deferred_pass(trace, counts, num_rows: int, chunk: int,
         return starts, freqs
     scratch = torch.empty((b, SCRATCH_INTS * num_rows), dtype=torch.int32,
                           device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dtpu_deferred_pass(trace.data_ptr(), n, counts.data_ptr(),
-                                scratch.data_ptr(), starts.data_ptr(),
-                                freqs.data_ptr(), b, num_rows, chunk, stream)
+    with cuda_build.on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dtpu_deferred_pass(trace.data_ptr(), n, counts.data_ptr(),
+                                    scratch.data_ptr(), starts.data_ptr(),
+                                    freqs.data_ptr(), b, num_rows, chunk,
+                                    stream)
     if rc != 0:
         raise RuntimeError(f"deferred_pass launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -51,7 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import native, tracelog
+from .. import cuda_build, native, tracelog
 from ..ans import rans_encode
 from ..container import format as fmt
 from ..ir.matcher import build_commands
@@ -384,8 +384,9 @@ def trace_order(trace: np.ndarray, cmd_freqs: np.ndarray,
 def compress_frames(blocks, options, layout, chunk: int, device,
                     timing: list | None = None,
                     billing: list | None = None) -> list[fmt.MetablockFrame]:
-    """Deferred encode of metablocks on `device` ("cuda", or "cpu" for
-    the plain versions); the frames equal native.compress's.  With
+    """Deferred encode of metablocks on `device` ("cuda", "cuda:N", made
+    the current device while the batches are issued, or "cpu" for the
+    plain versions); the frames equal native.compress's.  With
     `timing` (on the card), each batch appends (its marks, as in
     issue_batch; the seconds the issuing thread waited for the batch's
     host work).  With `billing` (a list), every frame takes the uniform
@@ -399,7 +400,8 @@ def compress_frames(blocks, options, layout, chunk: int, device,
     freqs: dict = {"cmd": [None] * n, "lit": [None] * n}
     pulls = []
     n_workers = max(1, min(8, os.cpu_count() or 1))
-    with ThreadPoolExecutor(n_workers) as pool, \
+    with cuda_build.on_device(device), \
+            ThreadPoolExecutor(n_workers) as pool, \
             ThreadPoolExecutor(1) as puller:
         futs = [pool.submit(host_frame, b, options, layout, chunk, bill)
                 for b in blocks]

@@ -87,16 +87,17 @@ def decode_group(q: dict, perm, n_pass: int, n_steps: int, s_bytes: int):
                         ("limsum", (lanes, r)), ("cnt", (lanes, r)),
                         ("wadj", (lanes, 2, 2))):
         carry[name] = torch.empty(shape, dtype=i32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dtpu_lit_decode_group(
-        q["words"].data_ptr(), w,
-        *[q[k].data_ptr() for k in ("counts", "state0", "n_lit", "woff",
-                                    "lcmap", "spd", "luts")],
-        perm.data_ptr(),
-        lanes, n_steps, s_bytes, n_pass, out.data_ptr(),
-        *[carry[k].data_ptr() for k in ("scalars", "committed", "weights",
-                                        "add", "limsum", "cnt", "wadj")],
-        stream)
+    with cuda_build.on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dtpu_lit_decode_group(
+            q["words"].data_ptr(), w,
+            *[q[k].data_ptr() for k in ("counts", "state0", "n_lit", "woff",
+                                        "lcmap", "spd", "luts")],
+            perm.data_ptr(),
+            lanes, n_steps, s_bytes, n_pass, out.data_ptr(),
+            *[carry[k].data_ptr() for k in ("scalars", "committed", "weights",
+                                            "add", "limsum", "cnt", "wadj")],
+            stream)
     if rc != 0:
         raise RuntimeError(f"decode_group launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -117,10 +117,11 @@ def lit_pass(rows, spd, n_nib, chunk: int):
     freqs = torch.empty((b, 2 * half), dtype=torch.int32, device=dev)
     if b == 0 or half == 0:
         return starts, freqs
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dtpu_lit_pass(rows.data_ptr(), half, spd.data_ptr(),
-                           n_nib.data_ptr(), starts.data_ptr(),
-                           freqs.data_ptr(), b, chunk, stream)
+    with cuda_build.on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dtpu_lit_pass(rows.data_ptr(), half, spd.data_ptr(),
+                               n_nib.data_ptr(), starts.data_ptr(),
+                               freqs.data_ptr(), b, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"lit_pass launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -159,15 +159,17 @@ def _launch(trace, n_steps, num_rows: int, n_lane: int, phase_ns):
     elem_b = torch.empty((max(t, 1), 4), dtype=torch.int32, device=dev)
     elem_info = torch.empty((max(t, 1),), dtype=torch.int32, device=dev)
     mix_counts = torch.empty((2 * b,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dtpu_model_pass(
-        trace.data_ptr(), offsets.data_ptr(), n_steps.data_ptr(), b,
-        num_rows, n_lane, starts.data_ptr(), freqs.data_ptr(),
-        counts.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        recs.data_ptr(), elem_a.data_ptr(), elem_b.data_ptr(),
-        elem_info.data_ptr(), mix_counts.data_ptr(),
-        div_table(dev).data_ptr(),
-        None if phase_ns is None else phase_ns.data_ptr(), stream)
+    with cuda_build.on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dtpu_model_pass(
+            trace.data_ptr(), offsets.data_ptr(), n_steps.data_ptr(), b,
+            num_rows, n_lane, starts.data_ptr(), freqs.data_ptr(),
+            counts.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            recs.data_ptr(), elem_a.data_ptr(), elem_b.data_ptr(),
+            elem_info.data_ptr(), mix_counts.data_ptr(),
+            div_table(dev).data_ptr(),
+            None if phase_ns is None else phase_ns.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"model_pass launch failed: CUDA error {rc}")
     LAUNCHES += 2

@@ -222,15 +222,17 @@ def _launch(cmd_states, cmd_words, lit_states, lit_words, raw_len,
     if not model_in_shared(lay.num_rows):
         scratch = torch.empty((b, lay.num_rows, 16), dtype=torch.int16,
                               device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dtpu_scan_decode(
-        cmd_states.data_ptr(), cmd_words.data_ptr(), wc,
-        lit_states.data_ptr(), lit_words.data_ptr(), wl, raw_len.data_ptr(),
-        prm.data_ptr(), lay.num_rows, max_steps, window_size, b,
-        window.data_ptr(), ok.data_ptr(), wpos.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        div_table(dev).data_ptr(),
-        None if clocks is None else clocks.data_ptr(), stream)
+    with cuda_build.on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dtpu_scan_decode(
+            cmd_states.data_ptr(), cmd_words.data_ptr(), wc,
+            lit_states.data_ptr(), lit_words.data_ptr(), wl,
+            raw_len.data_ptr(),
+            prm.data_ptr(), lay.num_rows, max_steps, window_size, b,
+            window.data_ptr(), ok.data_ptr(), wpos.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            div_table(dev).data_ptr(),
+            None if clocks is None else clocks.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"decode_scan launch failed: CUDA error {rc}")
     LAUNCHES += 1

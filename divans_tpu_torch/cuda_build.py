@@ -10,9 +10,15 @@ entry point returns an int: cudaGetLastError() after its launch).
 Builds of different kernels run in parallel when called from several
 threads (one lock per kernel); nvcc's output (ptxas registers and
 spills) and the seconds each build took are kept per kernel.
+
+`on_device(dev)` is the context every wrapper launches in: the CUDA
+runtime launches on the calling thread's current device (and sets a
+kernel's shared-memory attribute there), whatever device the pointers
+and the stream belong to.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -20,6 +26,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -92,6 +100,15 @@ def ptxas_usage(name: str) -> str:
     """The register and spill lines of a kernel's last build."""
     return " / ".join(ln.strip() for ln in BUILD_LOG.get(name, "").splitlines()
                       if "registers" in ln or "spill" in ln)
+
+
+def on_device(device):
+    """A context that makes `device` the thread's current CUDA device for
+    a launch, and does nothing for any other device (the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(name, t, dtype, shape, device):
