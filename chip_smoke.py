@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+Every kernel runs on the card; every plain version it is held against
+runs on host copies of the same inputs with one intra-op thread, its
+time on the host's clock, but kernel 5's over more than
+HOST_PLAIN_ENTRIES model entries, which runs on the card (_plain_run).
+
 Phases, each printing its line; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi) and CUDA;
   2. build: the seven kernels (csrc/lit_decode.cu, lit_pass.cu,
@@ -13,7 +18,7 @@ Phases, each printing its line; any failure raises and exits non-zero:
      metablock 2^18, chunk_nibbles 256): the reference bytes;
   4. encode kernels against their plain versions: the main path's first
      batch (the corpus's first HYBRID_BATCH frames, packed its way) goes
-     through the literal model pass twice on the card, kernel and plain
+     through the literal model pass twice, the kernel and its plain
      PyTorch version (equal starts and freqs; its bound by the rows each
      chunk counted beside the old count of 384 x 16 entries a chunk),
      then through the rANS encode twice (equal flags, flagged words,
@@ -29,8 +34,8 @@ Phases, each printing its line; any failure raises and exits non-zero:
      split into the kernel's own device time and the card's wait;
   6. decode kernel against its plain version: the main path's first
      lane group of that container, taken on until every lane has a job
-     (so every thread block of the kernel decodes), runs twice on the
-     card, once as the kernel's one launch and once as the plain group
+     (so every thread block of the kernel decodes), runs twice, once
+     as the kernel's one launch on the card and once as the plain group
      decode (the chunk loop in PyTorch), on the same tensors; the bytes
      and every lane's final carry (state, cursor, p1, p2, n_rem, queue
      position, committed model, weights, pend) must be equal; then one
@@ -40,7 +45,17 @@ Phases, each printing its line; any failure raises and exits non-zero:
      times; the output must equal the corpus, the kernel must have
      launched (once a lane group) and no frame may have left the device
      path; one more decode with CUDA events around each group's launch,
-     then the host stages alone (structure pass, CRC);
+     then the host stages alone (structure pass, CRC); then the decode's
+     opt-in routes ([dec-routes], phase_routes): kernel 1 resumed from a
+     carry against its plain version (the first lane group's first 32
+     chunks as two segments from idle_carry: the bytes and every carry
+     field) and against one launch (the whole group in segments of 64
+     chunks), decode_literals_batch against the numpy oracle
+     decode_literals_np on two sub-streams' heads, the container through
+     each route (resume, resume with qpl 2, qpl 2 and 3, backlog 0 and
+     3) beside the default route, each equal to the corpus with its
+     frames by path, launches and MB/s, and one decompress with
+     DIVANS_DEC_RESUME=1 set, whose launches must equal its segments;
   8. quality 11: the corpus's first 16 MiB and its host-only quality-11
      container (native.compress: the matcher's command lists with
      dictionary edges through the trace FSM): the reference bytes;
@@ -396,16 +411,59 @@ def phase_build() -> None:
           f"{t_native:.2f} s")
 
 
-def _cuda_ms_once(fn):
-    """(fn's result, its milliseconds by CUDA events), one run."""
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    res = fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return res, e0.elapsed_time(e1)
+def _tensors(x):
+    """The tensors in x (a tensor, or a dict, list or tuple of them)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def _on(x, device):
+    """x (a tensor, or a dict, list or tuple of them) on device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _on(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_on(v, device) for v in x)
+    return x
+
+
+def _plain_run(fn, *args, host: bool = True, **kw):
+    """(fn's result on its inputs' device, its milliseconds): a kernel's
+    plain version, one run on the same inputs.  On the host (copies of
+    the inputs, one intra-op thread, the host's clock) unless `host` is
+    False: a plain version is a chain of small operations over a few
+    lanes, up to a few times cheaper on the host than as launches on the
+    card, so every compare keeps its depth inside the run's time limit.
+    A plain version over a model too large for one host thread
+    (HOST_PLAIN_ENTRIES) runs on the card, timed by CUDA events."""
+    if not host:
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = fn(*args, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        return res, e0.elapsed_time(e1)
+    device = next(_tensors((args, kw))).device
+    cpu = torch.device("cpu")
+    args, kw = _on(args, cpu), _on(kw, cpu)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.set_num_threads(threads)
+    return _on(res, device), ms
 
 
 def _max_err(pairs) -> int:
@@ -449,8 +507,8 @@ def _lit_pass_compare(got, device, tag: str, smi: str):
     b, n = packed.shape[0], 2 * packed.shape[1]
     live = int((n_nib > 0).sum())
     n_sym = int(n_nib.sum())
-    (st_p, fr_p), plain_ms = _cuda_ms_once(
-        lambda: lit_pass.lit_pass_plain(packed, spd, n_nib, CHUNK))
+    (st_p, fr_p), plain_ms = _plain_run(lit_pass.lit_pass_plain, packed,
+                                        spd, n_nib, CHUNK)
     st_k, fr_k = lit_pass.lit_pass(packed, spd, n_nib, CHUNK)
     torch.cuda.synchronize()
     err = _max_err([(st_k, st_p), (fr_k, fr_p)])
@@ -499,8 +557,8 @@ def _rans_compare(st, fr, counts, tag: str, lanes: str, smi: str,
     lanes, by CUDA events, and the compare's kernel ms goes beside."""
     b, n = st.shape
     n_sym = int(counts.sum())
-    (w_p, f_p, s_p), plain_ms = _cuda_ms_once(
-        lambda: rans_encode.encode_lanes_plain(st, fr, counts))
+    (w_p, f_p, s_p), plain_ms = _plain_run(rans_encode.encode_lanes_plain,
+                                           st, fr, counts)
     w_k, f_k, s_k = rans_encode.encode_lanes(st, fr, counts)
     h_p = rans_encode.compact_global(w_p, f_p, counts, s_p)[1]
     h_k = rans_encode.compact_global(w_k, f_k, counts, s_k)[1]
@@ -560,7 +618,8 @@ def _rans_edge_compare(device, tag: str, smi: str) -> None:
         st[6, 400:420], fr[6, 400:420] = 0, 32768
         counts[7], counts[8] = 0, 600
         st, fr, counts = st.to(device), fr.to(device), counts.to(device)
-        w_p, f_p, s_p = rans_encode.encode_lanes_plain(st, fr, counts)
+        (w_p, f_p, s_p), _ms = _plain_run(rans_encode.encode_lanes_plain,
+                                          st, fr, counts)
         w_k, f_k, s_k = rans_encode.encode_lanes(st, fr, counts)
         torch.cuda.synchronize()
         err = _max_err([(w_k, w_p), (f_k, f_p), (s_k, s_p)])
@@ -812,8 +871,8 @@ def _group_compare(queues, n_steps: int, layout, chunk: int, device,
     s = chunk // 2
     live = int((q["counts"] > 0).sum())
     n_cmp = n_steps if cut is None else min(cut, n_steps)
-    (out_p, carry_p), plain_ms = _cuda_ms_once(
-        lambda: lit_decode.decode_group_plain(q, perm, n_pass, n_cmp, s))
+    (out_p, carry_p), plain_ms = _plain_run(lit_decode.decode_group_plain,
+                                            q, perm, n_pass, n_cmp, s)
     out_k, carry_k = lit_decode.decode_group(q, perm, n_pass, n_cmp, s)
     torch.cuda.synchronize()
     assert set(carry_k) == set(carry_p) == set(lit_decode.CARRY)
@@ -904,6 +963,237 @@ def phase_main(blob: bytes, corpus: bytes, device, smi: str) -> int:
           f"structure pass {t_struct:.3f} s on 8 threads, CRC {t_crc:.3f} s "
           f"| {smi}")
     return launches
+
+
+ROUTE_CMP_CHUNKS = 16    # [dec-routes]: kernel 1 against plain, two segments
+ROUTE_SEG_CHUNKS = 64    # the kernel resumed over the whole group, a segment
+ROUTE_ORACLE_BYTES = 4096   # decode_literals_np on each stream's head
+# each route by the reference's environment variables
+ROUTES = (("resume", dict(DIVANS_DEC_RESUME="1")),
+          ("resume qpl2", dict(DIVANS_DEC_RESUME="1", DIVANS_DEC_QPL="2")),
+          ("qpl2", dict(DIVANS_DEC_QPL="2")),
+          ("qpl3", dict(DIVANS_DEC_QPL="3")),
+          ("backlog0", dict(DIVANS_DEC_BACKLOG="0")),
+          ("backlog3", dict(DIVANS_DEC_BACKLOG="3")))
+
+
+def _carry_errs(got: dict, want: dict) -> dict:
+    assert set(got) == set(want) == set(lit_decode.CARRY)
+    return {k: _max_err([(got[k], want[k])]) for k in lit_decode.CARRY}
+
+
+@contextlib.contextmanager
+def _environ(env: dict):
+    """The variables of env set in os.environ, and restored after."""
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def _timed_decode_route(blob: bytes, device, timing: list) -> bytes:
+    """divans_tpu_torch.decompress of a deferred container with CUDA
+    events around each launch: as api.decompress (the layout from the
+    container's flags, decode.decompress_frames reading the route's
+    variables, the CRC checked), with decompress_frames' timing list."""
+    _w, _mb, frames, crc, flags = fmt.deserialize(blob)
+    layout = ModelLayout(PROFILES[FLAG_PROFILES[flags & 0b11]],
+                         lo_bucketed=True)
+    raw = decode.decompress_frames(frames, flags_to_chunk(flags), layout,
+                                   device, timing)
+    fmt.check_crc(raw, crc)
+    return raw
+
+
+def _route_runs(blob: bytes, corpus: bytes, device, env: dict):
+    """One route, its variables set: a warm decode with CUDA events around
+    each launch and the counts set to 0 just before it (launches, frames
+    by path, kernel ms a launch), then three timed decodes through
+    divans_tpu_torch.decompress; each equal to the corpus.  Returns (MB/s
+    best of 3, launches, STATS, ms a launch, seconds)."""
+    with _environ(env):
+        _launches_zeroed()
+        decode.reset_stats()
+        timing: list = []
+        assert _timed_decode_route(blob, device, timing) == corpus, env
+        torch.cuda.synchronize()
+        launches = lit_decode.LAUNCHES
+        stats = dict(decode.STATS)
+        assert len(timing) == launches, (len(timing), launches)
+        ms = (sum(e[0].elapsed_time(e[1]) for e, _h in timing) / len(timing)
+              if timing else 0.0)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raw = dt.decompress(blob)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            assert raw == corpus, f"route {env} differs from the corpus"
+    return len(corpus) / min(times) / 1e6, launches, stats, ms, times
+
+
+def _resume_compare(blob: bytes, device, smi: str) -> dict:
+    """Kernel 1 resumed from a carry on the main path's first lane group:
+    two segments of ROUTE_CMP_CHUNKS chunks from idle_carry, the kernel
+    against its plain version (bytes and every carry field); then the
+    kernel over the whole group in segments of ROUTE_SEG_CHUNKS against
+    one launch (bytes and carry), timed a segment launch.  Returns the
+    entry (ms and bound a segment launch; plain ms of the compare's two
+    segments)."""
+    queues, n_steps, layout, chunk, n_frames, _n = _first_group(blob)
+    q, perm, n_pass = decode.group_inputs(queues, chunk, layout, device)
+    s = chunk // 2
+    lanes = queues.words.shape[0]
+
+    def two_segments(fn, q, perm):
+        carry, outs = lit_decode.idle_carry(lanes, q["words"].device), []
+        for _ in range(2):
+            out, carry = fn(q, perm, n_pass, ROUTE_CMP_CHUNKS, s, carry=carry)
+            outs.append(out)
+        return torch.cat(outs, dim=1), carry
+
+    (out_p, carry_p), plain_ms = _plain_run(
+        two_segments, lit_decode.decode_group_plain, q, perm)
+    out_k, carry_k = two_segments(lit_decode.decode_group, q, perm)
+    torch.cuda.synchronize()
+    errs = _carry_errs(carry_k, carry_p)
+    errs["bytes"] = _max_err([(out_k, out_p)])
+    # the idle start decodes what the preloaded start decodes
+    head, _c = lit_decode.decode_group(q, perm, n_pass, 2 * ROUTE_CMP_CHUNKS,
+                                       s)
+    errs["bytes vs one launch"] = _max_err([(out_k, head)])
+    assert max(errs.values()) == 0, f"[dec-routes] resumed kernel 1 " \
+        f"differs from its plain version: {errs}"
+
+    bounds = list(range(0, n_steps, ROUTE_SEG_CHUNKS)) + [n_steps]
+
+    def segmented():
+        carry, outs = None, []
+        for lo, hi in zip(bounds, bounds[1:]):
+            out, carry = lit_decode.decode_group(q, perm, n_pass, hi - lo, s,
+                                                 carry=carry)
+            outs.append(out)
+        return torch.cat(outs, dim=1), carry
+
+    whole, carry_w = lit_decode.decode_group(q, perm, n_pass, n_steps, s)
+    out_s, carry_s = segmented()
+    torch.cuda.synchronize()
+    seg_errs = _carry_errs(carry_s, carry_w)
+    seg_errs["bytes"] = _max_err([(out_s, whole)])
+    assert max(seg_errs.values()) == 0, f"[dec-routes] the segmented " \
+        f"kernel differs from one launch: {seg_errs}"
+    n_seg = len(bounds) - 1
+    seg_ms = _cuda_ms(segmented, 3) / n_seg
+    one_ms = _cuda_ms(lambda: lit_decode.decode_group(q, perm, n_pass,
+                                                      n_steps, s), 3)
+    # a segment launch: its share of the group's work, and the carry it
+    # reads (every segment after the first) beside the one it writes
+    n_bytes, n_ops, n_dec, lane_chunks = _group_work(queues, carry_w,
+                                                     n_steps, s)
+    carry_bytes = sum(int(v.numel()) * 4 for v in carry_w.values())
+    e = _entry(seg_ms, plain_ms,
+               (n_bytes + (n_seg - 1) * carry_bytes) // n_seg,
+               n_ops // n_seg, max(max(errs.values()), max(seg_errs.values())))
+    e["compare"] = (f"the first lane group's first {2 * ROUTE_CMP_CHUNKS} "
+                    f"chunks as two segments from idle_carry (plain_ms), and "
+                    f"the whole group in {n_seg} segments of "
+                    f"{ROUTE_SEG_CHUNKS} against one launch")
+    print(f"[dec-routes] kernel 1 resumed from a carry, first lane group "
+          f"({n_frames} frames, {n_steps} chunks x {lanes} lanes, {n_dec} "
+          f"bytes over {lane_chunks} lane-chunks): two segments of "
+          f"{ROUTE_CMP_CHUNKS} chunks from idle_carry, kernel == plain on the "
+          f"bytes and every carry field ({', '.join(lit_decode.CARRY)}) and "
+          f"== one launch's first {2 * ROUTE_CMP_CHUNKS} chunks (max_abs_err "
+          f"{max(errs.values())}; plain {plain_ms:.2f} ms); {n_seg} segments "
+          f"of {ROUTE_SEG_CHUNKS} == one launch on the bytes and carry "
+          f"(max_abs_err {max(seg_errs.values())}): {seg_ms:.4f} ms a "
+          f"segment launch, {seg_ms * n_seg:.4f} ms in all against "
+          f"{one_ms:.4f} ms for one launch; bound {e['bound_ms']:.6f} ms a "
+          f"segment by {e['bound_by']} | {smi}")
+    return e
+
+
+def _oracle_compare(blob: bytes, device, smi: str) -> None:
+    """decode_literals_batch on the card (one stream a lane) against the
+    numpy oracle decode_literals_np on the head of the container's first
+    two literal sub-streams (decoding is causal, so a head is a
+    prefix)."""
+    _w, _mb, frames, _crc, flags = fmt.deserialize(blob)
+    chunk = flags_to_chunk(flags)
+    layout = ModelLayout(PROFILES["cm"], lo_bucketed=True)
+    scripts = decode.decode_structures(frames[:2], chunk, layout)
+    assert scripts is not None, "a leading frame left the envelope"
+    streams, n_lits, lcmaps, spds, _spans = decode.lane_jobs(
+        frames, list(enumerate(scripts)))
+    streams, n_lits = streams[:2], n_lits[:2]
+    assert len(streams) == 2, "fewer than two literal sub-streams"
+    got = decode.decode_literals_batch(streams, n_lits, lcmaps[:2], spds[:2],
+                                       chunk, layout, device)
+    t0 = time.perf_counter()
+    for g, st, n, lc, sp in zip(got, streams, n_lits, lcmaps, spds):
+        k = min(n, ROUTE_ORACLE_BYTES)
+        assert g[:k] == decode.decode_literals_np(st, k, lc, sp, chunk), \
+            "[dec-routes] decode_literals_batch differs from the oracle"
+    print(f"[dec-routes] decode_literals_batch on the card == "
+          f"decode_literals_np on the first {ROUTE_ORACLE_BYTES} bytes of "
+          f"{len(streams)} sub-streams ({n_lits} bytes each; the oracle "
+          f"{time.perf_counter() - t0:.1f} s) | {smi}")
+
+
+def phase_routes(blob: bytes, corpus: bytes, device, smi: str):
+    """[dec-routes]: the decode's opt-in routes on the q10 container.
+    Kernel 1 resumed from a carry (_resume_compare); the numpy oracle;
+    each route of ROUTES (its variables set) beside the default route,
+    decoded the same way in this phase (each equal to the corpus: frames
+    by path, launches, MB/s best of 3 of divans_tpu_torch.decompress
+    after a warm run); one more divans_tpu_torch.decompress with
+    DIVANS_DEC_RESUME=1 set, whose launches must equal its segments.
+    Returns (the resume entry, the resume route's launches)."""
+    t_all = time.perf_counter()
+    entry = _resume_compare(blob, device, smi)
+    _oracle_compare(blob, device, smi)
+    base = _route_runs(blob, corpus, device, {})
+    print(f"[dec-routes] default (grouped) route: {base[0]:.2f} MB/s best "
+          f"of 3 ({', '.join(f'{t:.3f}' for t in base[4])} s) | launches "
+          f"{base[1]} ({base[3]:.4f} ms each, device timeline) | frames "
+          f"{base[2]} | {smi}")
+    launches = None
+    for name, env in ROUTES:
+        mbps, n, stats, ms, times = _route_runs(blob, corpus, device, env)
+        if name == "resume":
+            launches = n
+            assert n > 0, "the resume route never launched the kernel"
+        if env.get("DIVANS_DEC_BACKLOG") == "0":
+            assert n == 0 and stats["host_frames"] == sum(stats.values())
+        print(f"[dec-routes] {name} {env}: == the corpus, {mbps:.2f} MB/s "
+              f"best of 3 ({', '.join(f'{t:.3f}' for t in times)} s) beside "
+              f"the default's {base[0]:.2f} ({mbps / base[0]:.3f}x) | "
+              f"launches {n}{f' ({ms:.4f} ms each)' if n else ''} | frames "
+              f"{stats} | {smi}")
+    # the environment reaches the route through the entry point
+    _launches_zeroed()
+    tracelog.clear()
+    tracelog.enable()
+    try:
+        with _environ(dict(DIVANS_DEC_RESUME="1")):
+            raw = dt.decompress(blob)
+    finally:
+        tracelog.enable(False)
+    n_seg = sum(ev.name == "decode/segment" for ev in tracelog.events())
+    tracelog.clear()
+    assert raw == corpus, "DIVANS_DEC_RESUME=1 decode differs"
+    assert 0 < n_seg == lit_decode.LAUNCHES, (n_seg, lit_decode.LAUNCHES)
+    print(f"[dec-routes] divans_tpu_torch.decompress with DIVANS_DEC_RESUME=1"
+          f": == the corpus, {lit_decode.LAUNCHES} launches == {n_seg} "
+          f"segments | phase {time.perf_counter() - t_all:.1f} s | {smi}")
+    return entry, launches
 
 
 def q11_options():
@@ -1026,8 +1316,8 @@ def _cmd_pass_compare(got, device, tag: str, smi: str):
     r = inc.shape[1]
     live = int((n_steps > 0).sum())
     assert live == b == len(got), (live, b)
-    (st_p, fr_p), plain_ms = _cuda_ms_once(
-        lambda: cmd_pass.cmd_pass_plain(packed, inc, lim, n_steps, s))
+    (st_p, fr_p), plain_ms = _plain_run(cmd_pass.cmd_pass_plain, packed,
+                                        inc, lim, n_steps, s)
     st_k, fr_k = cmd_pass.cmd_pass(packed, inc, lim, n_steps, s)
     torch.cuda.synchronize()
     err = _max_err([(st_k, st_p), (fr_k, fr_p)])
@@ -1172,8 +1462,9 @@ def _generic_lanes_compare(arrays, r: int, s: int, device, tag: str,
     chunk s; `what` names them on the printed line."""
     trace, counts = (torch.from_numpy(a).to(device) for a in arrays)
     b, n = trace.shape[:2]
-    (st_p, fr_p), plain_ms = _cuda_ms_once(
-        lambda: deferred_pass.deferred_pass_plain(trace, counts, r, s))
+    host = b * r * 16 <= HOST_PLAIN_ENTRIES
+    (st_p, fr_p), plain_ms = _plain_run(deferred_pass.deferred_pass_plain,
+                                        trace, counts, r, s, host=host)
     st_k, fr_k = deferred_pass.deferred_pass(trace, counts, r, s,
                                              checked=True)
     torch.cuda.synchronize()
@@ -1195,8 +1486,9 @@ def _generic_lanes_compare(arrays, r: int, s: int, device, tag: str,
           f"steps, N "
           f"{n}, {r} rows, chunk {s} | deferred_pass kernel == plain on "
           f"starts, freqs (max_abs_err {err}): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms, bound {e['bound_ms']:.6f} ms by "
-          f"{e['bound_by']} ({e['n_bytes']} B, {e['n_ops']} ops) | {smi}")
+          f"{plain_ms:.2f} ms (on the {'host' if host else 'card'}), bound "
+          f"{e['bound_ms']:.6f} ms by {e['bound_by']} ({e['n_bytes']} B, "
+          f"{e['n_ops']} ops) | {smi}")
     return e, st_k, fr_k, counts
 
 
@@ -1247,7 +1539,8 @@ def _generic_edge_compare(device, tag: str, smi: str) -> None:
         lanes, r = generic_edge_lanes(s)
         trace, counts = (torch.from_numpy(a).to(device)
                          for a in encode.generic_inputs(lanes, s))
-        st_p, fr_p = deferred_pass.deferred_pass_plain(trace, counts, r, s)
+        (st_p, fr_p), _ms = _plain_run(deferred_pass.deferred_pass_plain,
+                                       trace, counts, r, s)
         st_k, fr_k = deferred_pass.deferred_pass(trace, counts, r, s)
         torch.cuda.synchronize()
         err = _max_err([(st_k, st_p), (fr_k, fr_p)])
@@ -1300,7 +1593,8 @@ def _cmd_edge_compare(device, tag: str, smi: str) -> None:
     for s in (16, cmd_chunk(CHUNK), 256):
         packed, inc, lim, counts = (torch.from_numpy(a).to(device)
                                     for a in cmd_edge_lanes(s))
-        st_p, fr_p = cmd_pass.cmd_pass_plain(packed, inc, lim, counts, s)
+        (st_p, fr_p), _ms = _plain_run(cmd_pass.cmd_pass_plain, packed,
+                                       inc, lim, counts, s)
         st_k, fr_k = cmd_pass.cmd_pass(packed, inc, lim, counts, s)
         torch.cuda.synchronize()
         err = _max_err([(st_k, st_p), (fr_k, fr_p)])
@@ -1378,7 +1672,8 @@ def _lit_edge_compare(device, tag: str, smi: str) -> None:
         rows, spds = lit_edge_lanes(chunk)
         packed, spd, n_nib = (torch.from_numpy(a).to(device)
                               for a in encode.batch_inputs(rows, spds, chunk))
-        st_p, fr_p = lit_pass.lit_pass_plain(packed, spd, n_nib, chunk)
+        (st_p, fr_p), _ms = _plain_run(lit_pass.lit_pass_plain, packed,
+                                       spd, n_nib, chunk)
         st_k, fr_k = lit_pass.lit_pass(packed, spd, n_nib, chunk)
         torch.cuda.synchronize()
         err = _max_err([(st_k, st_p), (fr_k, fr_p)])
@@ -1598,13 +1893,16 @@ def _model_pass_work(traces):
             MODEL_PASS_OPS_PER_STEP * n + MODEL_PASS_OPS_PER_MIX_STEP * n_mix)
 
 
-def _model_pass_run(traces, r: int, device, plain: bool):
+def _model_pass_args(traces, r: int, device) -> tuple:
     flat, n_steps = model_pass.pack_traces(traces)
     n_lane = max(1, max(max(model_pass.lane_counts(t)) for t in traces))
-    tr = torch.from_numpy(flat).to(device)
-    ns = torch.from_numpy(n_steps).to(device)
-    fn = model_pass.model_pass_plain if plain else model_pass.model_pass
-    return lambda: fn(tr, ns, r, n_lane)
+    return (torch.from_numpy(flat).to(device),
+            torch.from_numpy(n_steps).to(device), r, n_lane)
+
+
+def _model_pass_run(traces, r: int, device):
+    args = _model_pass_args(traces, r, device)
+    return lambda: model_pass.model_pass(*args)
 
 
 def _sm_clock_mhz() -> float:
@@ -1647,13 +1945,13 @@ def _model_pass_compare(traces, r: int, device, tag: str, smi: str,
     of every lane, and the kernel's lanes there a prefix of the whole
     launch's.  Returns (entry, the whole launch's (starts, freqs, counts),
     the cut's)."""
-    full = _model_pass_run(traces, r, device, plain=False)
+    full = _model_pass_run(traces, r, device)
     ms = _cuda_ms(full, 2)
     st_f, fr_f, c_f = full()
     cut = [t[:steps] for t in traces]
-    (st_p, fr_p, c_p), plain_ms = _cuda_ms_once(
-        _model_pass_run(cut, r, device, plain=True))
-    kernel = _model_pass_run(cut, r, device, plain=False)
+    (st_p, fr_p, c_p), plain_ms = _plain_run(
+        model_pass.model_pass_plain, *_model_pass_args(cut, r, device))
+    kernel = _model_pass_run(cut, r, device)
     st_k, fr_k, c_k = kernel()
     torch.cuda.synchronize()
     err = _max_err([(st_k, st_p), (fr_k, fr_p), (c_k, c_p)])
@@ -1698,8 +1996,9 @@ def _model_pass_edge_compare(device, tag: str, smi: str) -> None:
     for prof in ("cm", "mix"):
         r = scan_decode.layout_of(prof).num_rows
         lanes = adaptive_edge_traces(r)
-        got = _model_pass_run(lanes, r, device, plain=False)()
-        want = _model_pass_run(lanes, r, device, plain=True)()
+        got = _model_pass_run(lanes, r, device)()
+        want, _ms = _plain_run(model_pass.model_pass_plain,
+                               *_model_pass_args(lanes, r, device))
         torch.cuda.synchronize()
         err = _max_err(list(zip(got, want)))
         assert err == 0, f"model_pass kernel differs from its plain " \
@@ -1739,8 +2038,8 @@ def _scan_compare(args, w: int, steps: int, profile: str):
     """The scan kernel against its plain version on these packed frames
     at `steps` micro-steps: equal windows, ok and wpos on every lane.
     Returns (the error, the kernel's (window, ok, wpos), plain ms)."""
-    (w_p, ok_p, wp_p), plain_ms = _cuda_ms_once(
-        lambda: scan_decode.decode_scan_plain(*args, profile, w, steps))
+    (w_p, ok_p, wp_p), plain_ms = _plain_run(scan_decode.decode_scan_plain,
+                                             *args, profile, w, steps)
     got = scan_decode.decode_scan(*args, profile, w, steps)
     torch.cuda.synchronize()
     w_k, ok_k, wp_k = got
@@ -2022,6 +2321,11 @@ DEC_CMP_CHUNKS = 32
 OPT_AD_CMP_STEPS = 2048
 OPT_SCAN_CMP_STEPS = 2048
 SEED = 0
+# the largest model (lanes x rows x 16 entries) whose plain version runs
+# on the host: kernel 5's on 128 detection lanes of 20,865 rows (43 M
+# entries) took 25.3 s on one host thread of an H100 machine, against
+# 1.7 s on the card
+HOST_PLAIN_ENTRIES = 1 << 24
 
 
 def build_records(target: int, seed: int = SEED) -> bytes:
@@ -2824,6 +3128,8 @@ def main() -> int:
     enc_launches = phase_encode_main(corpus, blob, smi)
     dec = phase_compare(blob, device, "dec-compare", smi)
     dec_launches = phase_main(blob, corpus, device, smi)
+    # the decode's opt-in routes on the same container
+    resume, resume_launches = phase_routes(blob, corpus, device, smi)
     corpus16 = corpus[:Q11_BYTES]
     blob16 = phase_q11_reference(corpus16)
     q11 = phase_q11_compare(corpus16, device, smi)
@@ -2884,6 +3190,9 @@ def main() -> int:
              dec_launches, decode_src),
             ("decode_group", lit_decode, "quality-11 decode", dec16,
              dec16_launches, decode_src),
+            # ms and bound a segment launch of the resumed kernel
+            ("decode_group", lit_decode, "resume", resume, resume_launches,
+             decode_src),
             ("lit_pass", lit_pass, "quality-10 encode", enc["lit_pass"],
              enc_launches["lit_pass"], lit_src),
             ("lit_pass", lit_pass, "quality-11 encode", q11["lit_pass"],

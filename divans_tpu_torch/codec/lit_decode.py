@@ -4,20 +4,24 @@ and its plain PyTorch version.
 `decode_group` is the port of the Pallas kernel
 divans_tpu/codec/pallas_decode.py:182 (`_make_lit_kernel`) together with
 the scan around it, `_decode_lit_scan_q` (:377): every chunk of every
-lane of a group, the stream switches, the premix and the lagged commit.
-On a CUDA tensor it launches csrc/lit_decode.cu once (built by
-cuda_build with nvcc for sm_90a at first use, bound through ctypes) or
-raises; on a CPU tensor it runs `decode_group_plain`, the same function
-written as a loop over the chunks: `lit_decode_chunk_plain` (a loop
-over the chunk's bytes, vector ops over the lanes) decodes each chunk
-against the premixed model, then the commit of codec/lit_model.py.  The
-kernel source documents the contract.
+lane of a group, the stream switches, the premix and the lagged commit;
+given the carry of an earlier call (`carry_in`, :695-705), it resumes
+every lane where it stopped.  On a CUDA tensor it launches
+csrc/lit_decode.cu once (built by cuda_build with nvcc for sm_90a at
+first use, bound through ctypes) or raises; on a CPU tensor it runs
+`decode_group_plain`, the same function written as a loop over the
+chunks: `lit_decode_chunk_plain` (a loop over the chunk's bytes, vector
+ops over the lanes) decodes each chunk against the premixed model, then
+the commit of codec/lit_model.py.  The kernel source documents the
+contract.
 
 Inputs: the lane queues as `decode.LaneQueues.to` gives them (words
 int32[L,W], counts int32[L], state0, n_lit, woff int32[F,L], lcmap
 int32[F,L,64], spd int32[F,L,6], luts int32[512]), perm int32[384]
 (kernel plane -> rebased row, lit_model.planes), the renorm passes of
-each commit, the chunk count and the bytes a chunk.  Outputs: the bytes
+each commit, the chunk count and the bytes a chunk, and optionally a
+carry to resume from (`idle_carry`, or a call's final carry; the queue
+tables may have grown since, rows only appended).  Outputs: the bytes
 uint8[L, n_steps*s] and the final carry, a dict of int32 tensors
 (CARRY).
 """
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import cuda_build
@@ -40,12 +45,13 @@ N_PLANES_MIX = 192
 NAME = "lit_decode"
 _SIGNATURES = {"dtpu_lit_decode_group":
                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
-               + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9}
+               + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 16}
 # the final carry of a lane group: per lane scalars [L], the committed
 # model [L,385,16], the mixer weights [L,2,3] and the last chunk's pend
 # (add [L,385,16], limsum and cnt [L,385], wadj [L,2,2])
 SCALARS = ("state", "cursor", "p1", "p2", "n_rem", "fidx")
 CARRY = SCALARS + ("committed", "weights", "add", "limsum", "cnt", "wadj")
+_TENSORS = CARRY[len(SCALARS):]
 
 # kernel launches, counted where the wrapper launches (and nowhere else)
 LAUNCHES = 0
@@ -56,12 +62,57 @@ def build():
     return cuda_build.load(NAME, _SIGNATURES)
 
 
-def decode_group(q: dict, perm, n_pass: int, n_steps: int, s_bytes: int):
-    """Decode n_steps chunks of every lane of the group q: (bytes, carry)."""
+def _carry_shapes(lanes: int) -> dict:
+    r = lit_model.R_LIT
+    return {**{k: (lanes,) for k in SCALARS},
+            "committed": (lanes, r, 16), "weights": (lanes, 2, 3),
+            "add": (lanes, r, 16), "limsum": (lanes, r), "cnt": (lanes, r),
+            "wadj": (lanes, 2, 2)}
+
+
+def idle_carry(lanes: int, device) -> dict:
+    """The empty-queue start (the reference's _resume_init_carry): every
+    lane idle (fidx -1, n_rem 0) with a fresh model, so each lane's first
+    stream loads through the in-loop switch; the bytes equal those of the
+    preloaded start."""
+    dev = torch.device(device)
+    committed, weights, pend = lit_model.init_state(lanes, dev)
+    carry = {k: torch.zeros(lanes, dtype=torch.int32, device=dev)
+             for k in SCALARS}
+    carry["fidx"] -= 1
+    return dict(carry, committed=committed, weights=weights,
+                **dict(zip(("add", "limsum", "cnt", "wadj"), pend)))
+
+
+def from_tpu_carry(j_carry) -> dict:
+    """The JAX package's scan carry (committed [B,16,R], weights, the pend
+    dict in [B,16,R] layout, state, cursor, p1, p2, n_rem, fidx,
+    lcmap_cur, spd_cur) as the port's carry on the CPU; the current
+    lcmap and speeds are row fidx of the tables, so they are dropped."""
+    (committed, weights, pend, state, cursor, p1, p2, n_rem, fidx,
+     _lcmap, _spd) = j_carry
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32))
+    return {"state": t(state), "cursor": t(cursor), "p1": t(p1),
+            "p2": t(p2), "n_rem": t(n_rem), "fidx": t(fidx),
+            "committed": t(np.swapaxes(np.asarray(committed), 1, 2)),
+            "weights": t(weights),
+            "add": t(np.swapaxes(np.asarray(pend["add"]), 1, 2)),
+            "limsum": t(pend["limsum"]), "cnt": t(pend["cnt"]),
+            "wadj": t(pend["wadj"])}
+
+
+def decode_group(q: dict, perm, n_pass: int, n_steps: int, s_bytes: int,
+                 carry: dict | None = None):
+    """Decode n_steps chunks of every lane of the group q, from the
+    preloaded start or, given `carry`, from where each lane stopped:
+    (bytes, final carry)."""
     global LAUNCHES
     dev = q["words"].device
     if dev.type == "cpu":
-        return decode_group_plain(q, perm, n_pass, n_steps, s_bytes)
+        return decode_group_plain(q, perm, n_pass, n_steps, s_bytes,
+                                  carry=carry)
     if dev.type != "cuda":
         raise ValueError(f"decode_group runs on cuda or cpu, not {dev}")
     lanes, w = q["words"].shape
@@ -76,17 +127,21 @@ def decode_group(q: dict, perm, n_pass: int, n_steps: int, s_bytes: int):
     check("perm", perm, i32, (lit_model.N_PLANES,), dev)
     if w < 1 or f < 1 or s_bytes < 1 or n_steps < 0:
         raise ValueError("empty word rows, queues or chunk")
+    carry_in = [None] * (1 + len(_TENSORS))
+    if carry is not None:
+        for name, shape in _carry_shapes(lanes).items():
+            check(f"carry[{name!r}]", carry[name], i32, shape, dev)
+        scalars = torch.stack([carry[k] for k in SCALARS])
+        carry_in = [scalars.data_ptr()] + [carry[k].data_ptr()
+                                           for k in _TENSORS]
     lib = build()
     out = torch.empty((lanes, n_steps * s_bytes), dtype=torch.uint8,
                       device=dev)
-    r = lit_model.R_LIT
-    carry = {"scalars": torch.empty((len(SCALARS), lanes), dtype=i32,
-                                    device=dev)}
-    for name, shape in (("committed", (lanes, r, 16)),
-                        ("weights", (lanes, 2, 3)), ("add", (lanes, r, 16)),
-                        ("limsum", (lanes, r)), ("cnt", (lanes, r)),
-                        ("wadj", (lanes, 2, 2))):
-        carry[name] = torch.empty(shape, dtype=i32, device=dev)
+    shapes = _carry_shapes(lanes)
+    res = {"scalars": torch.empty((len(SCALARS), lanes), dtype=i32,
+                                  device=dev),
+           **{k: torch.empty(shapes[k], dtype=i32, device=dev)
+              for k in _TENSORS}}
     with cuda_build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dtpu_lit_decode_group(
@@ -95,18 +150,13 @@ def decode_group(q: dict, perm, n_pass: int, n_steps: int, s_bytes: int):
                                         "lcmap", "spd", "luts")],
             perm.data_ptr(),
             lanes, n_steps, s_bytes, n_pass, out.data_ptr(),
-            *[carry[k].data_ptr() for k in ("scalars", "committed", "weights",
-                                            "add", "limsum", "cnt", "wadj")],
-            stream)
+            *[res[k].data_ptr() for k in ("scalars",) + _TENSORS],
+            *carry_in, stream)
     if rc != 0:
         raise RuntimeError(f"decode_group launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return out, _unpack(carry)
-
-
-def _unpack(carry: dict) -> dict:
-    scalars = carry.pop("scalars")
-    return dict(zip(SCALARS, scalars.unbind(0)), **carry)
+    scalars = res.pop("scalars")
+    return out, dict(zip(SCALARS, scalars.unbind(0)), **res)
 
 
 # ------------------------------------------------------------ plain version
@@ -125,11 +175,13 @@ def _adj_tables(mix, cm, nib):
 
 @torch.inference_mode()
 def decode_group_plain(q: dict, perm, n_pass: int, n_steps: int,
-                       s_bytes: int, chunk_fn=None):
+                       s_bytes: int, chunk_fn=None,
+                       carry: dict | None = None):
     """The same function in plain PyTorch: per chunk, the stream switch,
     the premix, `chunk_fn` (default lit_decode_chunk_plain; a test may
     pass a spy of the same signature), the count histograms, the mixer
-    sums and the commit (codec/lit_model.py)."""
+    sums and the commit (codec/lit_model.py); from `carry` as
+    decode_group."""
     chunk_fn = chunk_fn or lit_decode_chunk_plain
     s = s_bytes
     words, counts, luts = q["words"], q["counts"], q["luts"]
@@ -143,12 +195,19 @@ def decode_group_plain(q: dict, perm, n_pass: int, n_steps: int,
 
     committed0, weights0, pend = lit_model.init_state(b, dev)
     committed, weights = committed0, weights0
-    fidx = torch.zeros(b, dtype=torch.long, device=dev)
-    state = q["state0"][0].clone()
-    cursor = q["woff"][0] * 2
-    p1 = torch.zeros(b, **i32)
-    p2 = torch.zeros(b, **i32)
-    n_rem = q["n_lit"][0].clone()
+    if carry is None:
+        fidx = torch.zeros(b, dtype=torch.long, device=dev)
+        state = q["state0"][0].clone()
+        cursor = q["woff"][0] * 2
+        p1 = torch.zeros(b, **i32)
+        p2 = torch.zeros(b, **i32)
+        n_rem = q["n_lit"][0].clone()
+    else:
+        state, cursor, p1, p2, n_rem = [carry[k].clone()
+                                        for k in SCALARS[:5]]
+        fidx = carry["fidx"].long()
+        committed, weights = carry["committed"], carry["weights"]
+        pend = tuple(carry[k] for k in ("add", "limsum", "cnt", "wadj"))
     out = torch.empty((b, n_steps * s), dtype=torch.uint8, device=dev)
 
     for step in range(n_steps):
@@ -157,13 +216,16 @@ def decode_group_plain(q: dict, perm, n_pass: int, n_steps: int,
         nxt = fidx + 1
         sw = (n_rem <= 0) & (nxt < counts)
         fidx = torch.where(sw, nxt, fidx)
-        state = torch.where(sw, q["state0"][fidx, lanes], state)
-        cursor = torch.where(sw, q["woff"][fidx, lanes] * 2, cursor)
+        # a lane still idle from idle_carry (fidx -1) reads no table row
+        fx = fidx.clamp(min=0)
+        live = (fidx >= 0)[:, None]
+        state = torch.where(sw, q["state0"][fx, lanes], state)
+        cursor = torch.where(sw, q["woff"][fx, lanes] * 2, cursor)
         p1 = torch.where(sw, 0, p1)
         p2 = torch.where(sw, 0, p2)
-        n_rem = torch.where(sw, q["n_lit"][fidx, lanes], n_rem)
-        lcmap = q["lcmap"][fidx, lanes]
-        spd = q["spd"][fidx, lanes]
+        n_rem = torch.where(sw, q["n_lit"][fx, lanes], n_rem)
+        lcmap = torch.where(live, q["lcmap"][fx, lanes], 0)
+        spd = torch.where(live, q["spd"][fx, lanes], 0)
         swb = sw[:, None, None]
         committed = torch.where(swb, committed0, committed)
         weights = torch.where(swb, weights0, weights)

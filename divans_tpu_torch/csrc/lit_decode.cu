@@ -33,6 +33,17 @@
 // Everything is int32 with the reference's wraps (products, sums and
 // shifts done in uint32 and cast back) and floor division.
 //
+// Resuming (the reference's carry_in, pallas_decode.py:695-705).  Given
+// a carry (the final carry of an earlier launch, or every lane idle:
+// fidx -1, n_rem 0), a lane continues where it stopped instead of
+// preloading stream 0: its scalars, committed model and weights come
+// from the carry, its lcmap and speeds from row fidx of the tables (none
+// for fidx < 0; the tables may have grown since, rows only appended),
+// and the first chunk's commit takes the carried pend (add, limsum and
+// cnt read row by row from device memory, wadj from the carry) unless
+// the lane switches streams at that chunk.  The shared memory does not
+// grow.
+//
 // Design.  One block of 256 threads per lane; the lane's whole state
 // lives in shared memory for the whole launch: the committed model
 // (385 x 16 int32), two chunks' count histograms (the pend is kept as
@@ -164,6 +175,17 @@ __device__ __forceinline__ void pend_row(const int* hist, int r,
   limsum = mul32(lim, cnt);
 }
 
+// one row of a carried pend, from device memory
+__device__ __forceinline__ void carry_row(const int32_t* add_in,
+                                          const int32_t* limsum_in,
+                                          const int32_t* cnt_in, size_t o,
+                                          int* add, int& limsum, int& cnt) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) add[i] = add_in[o * 16 + i];
+  limsum = limsum_in[o];
+  cnt = cnt_in[o];
+}
+
 // the mixer weight rules of one "which": clip, 24-bit over-rule,
 // norm_weight with its i16 wraps.  w = (w0, w1, nw), adj = (cm, nib).
 __device__ __forceinline__ void commit_weights(int* w, const int* adj) {
@@ -242,7 +264,12 @@ __global__ void __launch_bounds__(kThreads) lit_decode_group_kernel(
     int32_t* __restrict__ sc_out, int32_t* __restrict__ committed_out,
     int32_t* __restrict__ weights_out, int32_t* __restrict__ add_out,
     int32_t* __restrict__ limsum_out, int32_t* __restrict__ cnt_out,
-    int32_t* __restrict__ wadj_out) {
+    int32_t* __restrict__ wadj_out, const int32_t* __restrict__ sc_in,
+    const int32_t* __restrict__ committed_in,
+    const int32_t* __restrict__ weights_in,
+    const int32_t* __restrict__ add_in,
+    const int32_t* __restrict__ limsum_in,
+    const int32_t* __restrict__ cnt_in, const int32_t* __restrict__ wadj_in) {
   extern __shared__ __align__(16) int smem[];
   int* committed = smem;                          // [385][16]
   int* hist = committed + kRows * 16;             // [2][192][16]
@@ -264,6 +291,7 @@ __global__ void __launch_bounds__(kThreads) lit_decode_group_kernel(
   const int count = counts[l];
   const int32_t* wrow = words + (size_t)l * W;
   const size_t out_row = (size_t)n_steps * s;
+  const bool resume = sc_in != nullptr;
 
   // one lane's model, mixer, pend and tables, fresh for stream fidx
   auto reset = [&](int fidx) {
@@ -285,13 +313,35 @@ __global__ void __launch_bounds__(kThreads) lit_decode_group_kernel(
 
   for (int i = tid; i < 512; i += kThreads) luts[i] = luts_in[i];
   for (int i = tid; i < 384; i += kThreads) perm[i] = perm_in[i];
-  reset(0);
-  if (tid == 0) {
-    sc[kState] = state0[l];
-    sc[kCursor] = woff[l] * 2;
-    sc[kP1] = sc[kP2] = 0;
-    sc[kNRem] = n_lit[l];
-    sc[kFidx] = 0;
+  if (resume) {
+    // the carried lane; its pend's wadj goes where step 0 commits from
+    const int fidx = sc_in[kFidx * L + l];
+    const size_t f = (size_t)max(fidx, 0) * L + l;
+    for (int i = tid; i < kRows * 16; i += kThreads) {
+      committed[i] = committed_in[(size_t)l * kRows * 16 + i];
+    }
+    for (int i = tid; i < 2 * kHistRows * 16; i += kThreads) hist[i] = 0;
+    for (int i = tid; i < 64; i += kThreads) {
+      lcmap[i] = fidx >= 0 ? lcmap_all[f * 64 + i] : 0;
+    }
+    if (tid < 6) {
+      spd[tid] = fidx >= 0 ? spd_all[f * 6 + tid] : 0;
+      weights[tid] = weights_in[l * 6 + tid];
+      sc[tid] = sc_in[tid * L + l];              // state .. fidx
+    }
+    if (tid < 4) {
+      wadj[tid] = 0;
+      wadj[4 + tid] = wadj_in[l * 4 + tid];
+    }
+  } else {
+    reset(0);
+    if (tid == 0) {
+      sc[kState] = state0[l];
+      sc[kCursor] = woff[l] * 2;
+      sc[kP1] = sc[kP2] = 0;
+      sc[kNRem] = n_lit[l];
+      sc[kFidx] = 0;
+    }
   }
   __syncthreads();
 
@@ -418,10 +468,17 @@ __global__ void __launch_bounds__(kThreads) lit_decode_group_kernel(
     }
     __syncthreads();
 
-    // ---- 6. commit the previous chunk's pend
+    // ---- 6. commit the previous chunk's pend (at a resumed lane's first
+    // chunk the carried one, unless the lane switched streams)
+    const bool carried = resume && step == 0 && !sc[kSwitch];
     for (int r = tid; r < kRows; r += kThreads) {
       int add[16], limsum, cnt;
-      pend_row(hist_old, r, spd, add, limsum, cnt);
+      if (carried) {
+        carry_row(add_in, limsum_in, cnt_in, (size_t)l * kRows + r, add,
+                  limsum, cnt);
+      } else {
+        pend_row(hist_old, r, spd, add, limsum, cnt);
+      }
       int v[16];
       int* row = committed + r * 16;
 #pragma unroll
@@ -452,7 +509,12 @@ __global__ void __launch_bounds__(kThreads) lit_decode_group_kernel(
   const int* wadj_last = wadj + ((n_steps + 1) & 1) * 4;
   for (int r = tid; r < kRows; r += kThreads) {
     int add[16], limsum, cnt;
-    pend_row(hist_last, r, spd, add, limsum, cnt);
+    if (resume && n_steps == 0) {
+      carry_row(add_in, limsum_in, cnt_in, (size_t)l * kRows + r, add,
+                limsum, cnt);
+    } else {
+      pend_row(hist_last, r, spd, add, limsum, cnt);
+    }
     const size_t o = ((size_t)l * kRows + r) * 16;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
@@ -483,14 +545,19 @@ static int smem_bytes(int s) {
 // n_steps*s], sc_out int32[6,L] (state, cursor, p1, p2, n_rem, fidx),
 // committed int32[L,385,16], weights int32[L,2,3], and the last chunk's
 // pend: add int32[L,385,16], limsum, cnt int32[L,385], wadj int32[L,2,2].
-// One block per lane.  Launches on `stream` and returns
-// cudaGetLastError() (or the error of the shared-memory attribute).
+// sc_in .. wadj_in: a carry of the same layout to resume from, or all
+// null (each lane preloads stream 0).  One block per lane.  Launches on
+// `stream` and returns cudaGetLastError() (or the error of the
+// shared-memory attribute).
 extern "C" int dtpu_lit_decode_group(
     const void* words, int W, const void* counts, const void* state0,
     const void* n_lit, const void* woff, const void* lcmap, const void* spd,
     const void* luts, const void* perm, int L, int n_steps, int s,
     int n_pass, void* out, void* sc_out, void* committed, void* weights,
-    void* add, void* limsum, void* cnt, void* wadj, void* stream) {
+    void* add, void* limsum, void* cnt, void* wadj, const void* sc_in,
+    const void* committed_in, const void* weights_in, const void* add_in,
+    const void* limsum_in, const void* cnt_in, const void* wadj_in,
+    void* stream) {
   const int smem = smem_bytes(s);
   cudaError_t err = cudaFuncSetAttribute(
       lit_decode_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -502,6 +569,10 @@ extern "C" int dtpu_lit_decode_group(
       (const int32_t*)lcmap, (const int32_t*)spd, (const int32_t*)luts,
       (const int32_t*)perm, L, n_steps, s, n_pass, (uint8_t*)out,
       (int32_t*)sc_out, (int32_t*)committed, (int32_t*)weights,
-      (int32_t*)add, (int32_t*)limsum, (int32_t*)cnt, (int32_t*)wadj);
+      (int32_t*)add, (int32_t*)limsum, (int32_t*)cnt, (int32_t*)wadj,
+      (const int32_t*)sc_in, (const int32_t*)committed_in,
+      (const int32_t*)weights_in, (const int32_t*)add_in,
+      (const int32_t*)limsum_in, (const int32_t*)cnt_in,
+      (const int32_t*)wadj_in);
   return (int)cudaGetLastError();
 }
