@@ -201,7 +201,24 @@ Phases, each printing its line; any failure raises and exits non-zero:
      version on the first shard's first 32 chunks), the scripts executed
      into the 16 MiB; with more than one card, compress and decompress
      with device="cuda:N" on the last card (else a line says this was not
-     reached).
+     reached);
+ 30. the port without its native library ([no-native], phase_no_native):
+     native.load patched to return None for the phase, so the host
+     stages take the reference's lib-less Python routes (the greedy
+     parse, the Python dictionary scan and trace FSM, the golden
+     structure pass and script executor) while each device stage stays
+     on its kernel; the corpus's first 1 MiB at chunk 256 (quality 10)
+     and at chunk 0, one 256 KiB frame at quality 11: each encoded and
+     decoded through divans_tpu_torch beside the same input with the
+     library (each stage's seconds and MB/s side by side), the lib-less
+     container equal to the input on the card (at chunk 256 through
+     CmdScripts feeding kernel 1, every frame on it; at chunk 0 one
+     scan launch) and through native.decompress with the library back;
+     each kernel that ran against its plain version on the run's own
+     inputs (the cmd pass, the lit pass and the rANS encode on the
+     frames' lanes, kernel 1 on the CmdScripts' first lane group cut at
+     DEC_CMP_CHUNKS, A1 and A2 cut at OPT_AD_CMP_STEPS and
+     OPT_SCAN_CMP_STEPS), one "no-native" entry a kernel.
 Each path's launches are counted with the counts set to 0 just before
 its run.  Then one JSON line with the kernels' numbers, one entry for
 each kernel and path (the kernel's launches on that path, its
@@ -2154,21 +2171,25 @@ def _scan_edge_compare(data: bytes, opts, device, tag: str, smi: str):
 def _adaptive_compare(data: bytes, opts, ref: bytes, device, tag: str,
                       smi: str, edges: bool = False,
                       steps: int = AD_CMP_STEPS,
-                      scan_steps: int = AD_SCAN_CMP_STEPS) -> dict:
+                      scan_steps: int = AD_SCAN_CMP_STEPS,
+                      traces=None) -> dict:
     """The adaptive path's kernels on the main path's inputs (its frames
     at the options' metablock size, its container `ref`) against their
     plain versions: the model pass, the rANS encode on its lanes, and the
     scan (cut at `steps` and `scan_steps`).  `opts` are resolved (no
     detection left to run: ir/detect.apply_detection).  With
     `edges`, also the model pass on the edge traces and the scan on
-    _scan_edge_compare's frames.  Returns the kernels' entries."""
+    _scan_edge_compare's frames.  `traces`: the frames' traces when the
+    caller has them (the main path's own).  Returns the kernels'
+    entries."""
     blocks = [data[o:o + opts.metablock_size]
               for o in range(0, len(data), opts.metablock_size)]
     profile = profile_for_options(opts)
     r = _ad_layout(opts).num_rows
     print(f"[{tag}] the main path's {len(blocks)} frames at metablock "
           f"{opts.metablock_size}, profile {profile}, quality {opts.quality}")
-    traces = _ad_traces(blocks, opts)
+    if traces is None:
+        traces = _ad_traces(blocks, opts)
     mp, full, cut = _model_pass_compare(traces, r, device, tag, smi, steps)
     _model_pass_phases(traces, r, device, tag, smi)
     if edges:
@@ -2373,7 +2394,7 @@ def _rans_cut_compare(st, fr, counts, tag: str, lanes: str, smi: str):
 
 
 def _deferred_compare(data: bytes, res, device, tag: str, smi: str,
-                      billing: bool = False) -> dict:
+                      billing: bool = False, got=None) -> dict:
     """The kernels of the path's first batch (host_frame on the resolved
     options, as a billed encode prepares it when `billing`; batch_jobs'
     packing): on the uniform lanes the cmd streams' pass (kernel 4, or 5
@@ -2381,9 +2402,11 @@ def _deferred_compare(data: bytes, res, device, tag: str, smi: str,
     or 5 outside its envelope), each against its plain version on the
     whole batch, then the rANS encode on both (cut as _rans_cut_compare
     says); on the hybrid the host codes the cmd streams, so only the
-    literals' pass and its rANS encode.  Returns {kernel name: entry},
-    the rANS encode's launches summed."""
-    got = _first_batch(data, res, billing)
+    literals' pass and its rANS encode.  `got`: the batch's host_frame
+    results when the caller has them (the main path's own).  Returns
+    {kernel name: entry}, the rANS encode's launches summed."""
+    if got is None:
+        got = _first_batch(data, res, billing)
     hybrid = all(g.cmd is not None for g in got)
     print(f"[{tag}] first batch: {len(got)} frames of {MB_SIZE} B, profile "
           f"{profile_for_options(res)}, quality {res.quality}, cmd streams "
@@ -3115,6 +3138,225 @@ def phase_dist(corpus: bytes, device, smi: str) -> dict:
     return out
 
 
+# ------------------------------------ the port without its native library
+
+NN_BYTES = 1 << 20          # [no-native]: the corpus's first 1 MiB (four
+                            # frames) at chunk 256 and at chunk 0: the
+                            # greedy parse and the Python trace FSM take
+                            # ~4 s a frame on one core
+NN_Q11_BYTES = 256 << 10    # one frame at quality 11: the Python
+                            # dictionary scan takes ~30 s a frame
+# each entry of the kernels line and the module that counts its launches
+ENTRY_MODULES = {"cmd_pass": cmd_pass, "lit_pass": lit_pass,
+                 "deferred_pass": deferred_pass, "encode_lanes": rans_encode,
+                 "decode_group": lit_decode, "model_pass": model_pass,
+                 "scan_decode": scan_decode}
+
+
+@contextlib.contextmanager
+def _native_absent():
+    """native.load patched to return None for the block (the library
+    absent: every host stage takes the reference's lib-less route), then
+    restored."""
+    real = native.load
+    native.load = lambda: None
+    try:
+        yield
+    finally:
+        native.load = real
+
+
+@contextlib.contextmanager
+def _spy(module, name: str, calls: list):
+    """module.name wrapped for the block: each call appends (its first
+    argument, its result, its start and end on the host clock) to
+    `calls` (from any thread)."""
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        t0 = time.perf_counter()
+        res = real(*args, **kw)
+        calls.append((args[0], res, t0, time.perf_counter()))
+        return res
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _span(calls: list) -> float:
+    """Seconds from the first call's start to the last call's end (the
+    calls run on a pool: their sum would count the overlap)."""
+    return (max(c[3] for c in calls) - min(c[2] for c in calls)
+            if calls else 0.0)
+
+
+def _nn_run(data: bytes, opts, native_on: bool):
+    """One encode and one decode of `data` through divans_tpu_torch on the
+    card, with the library or without it (_native_absent), the launches
+    of each counted from 0 and the frames by path; the host stages of
+    each timed by _spy as their span (the encode's host_frame at chunk
+    256, _host_frame at chunk 0: the trace and its packing; the decode's
+    structure pass at chunk 256, the scripts' execution), and the CRC of
+    the input alone.  Returns the container, a dict of the numbers, the
+    host results in frame order and the scripts' classes."""
+    chunk = opts.chunk_nibbles
+    absent = contextlib.nullcontext() if native_on else _native_absent()
+    host, struct, execs = [], [], []
+    r = {}
+    with absent:
+        _launches_zeroed()
+        encode.reset_stats()
+        with _spy(encode if chunk else adaptive,
+                  "host_frame" if chunk else "_host_frame", host):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blob = dt.compress(data, opts)
+            torch.cuda.synchronize()
+            r["enc_s"] = time.perf_counter() - t0
+        r["enc_launches"] = {k: m.LAUNCHES for k, m in ALL_KERNELS.items()
+                             if m.LAUNCHES}
+        r["enc_stats"] = dict(encode.STATS)
+        _launches_zeroed()
+        decode.reset_stats()
+        adaptive.reset_stats()
+        with _spy(decode, "decode_structure", struct), \
+                _spy(decode, "execute", execs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raw = dt.decompress(blob)
+            torch.cuda.synchronize()
+            r["dec_s"] = time.perf_counter() - t0
+        assert raw == data, "the round trip differs"
+        r["dec_launches"] = {k: m.LAUNCHES for k, m in ALL_KERNELS.items()
+                             if m.LAUNCHES}
+        r["dec_stats"] = dict(decode.STATS if chunk else adaptive.STATS)
+        t0 = time.perf_counter()
+        native.crc32c(data)
+        r["crc_s"] = time.perf_counter() - t0
+    r["host_s"], r["struct_s"], r["exec_s"] = (_span(c) for c in
+                                               (host, struct, execs))
+    by_raw = {c[0]: c[1] for c in host}
+    order = [by_raw[data[o:o + MB_SIZE]] for o in range(0, len(data),
+                                                         MB_SIZE)]
+    scripts = sorted({type(c[0]).__name__ for c in execs})
+    return blob, r, order, scripts
+
+
+def _nn_line(tag: str, what: str, n: int, s_off: float, s_on: float,
+             smi: str) -> None:
+    print(f"[{tag}] {what}: without the library {s_off:.3f} s "
+          f"({n / s_off / 1e6:.3f} MB/s), with it {s_on:.3f} s "
+          f"({n / s_on / 1e6:.3f} MB/s) | {smi}")
+
+
+def _nn_case(data: bytes, opts, device, tag: str, smi: str) -> dict:
+    """One input without the library against the same with it: the
+    encode and the decode through divans_tpu_torch (_nn_run), each
+    stage's seconds and MB/s side by side; the lib-less container
+    decodes on the card to the input (at chunk 256 through CmdScripts
+    from the golden structure pass feeding kernel 1) and, with the
+    library back, through native.decompress (an independent decoder).
+    Then each kernel that ran, against its plain version on the main
+    path's own inputs (the host results the run made), cut as the option
+    paths cut them: at chunk 256 the cmd pass (or kernel 5), the lit
+    pass and the rANS encode on the frames' lanes and kernel 1 on the
+    container's first lane group (its scripts CmdScripts, cut at
+    DEC_CMP_CHUNKS); at chunk 0 A1, the rANS encode and A2 (cut at
+    OPT_AD_CMP_STEPS and OPT_SCAN_CMP_STEPS).  Returns {kernel: (entry,
+    launches on the lib-less path)}."""
+    t_all = time.perf_counter()
+    chunk = opts.chunk_nibbles
+    n = len(data)
+    n_frames = -(-n // MB_SIZE)
+    blob_lib, on, _o, _s = _nn_run(data, opts, True)
+    blob, off, host, scripts = _nn_run(data, opts, False)
+    t0 = time.perf_counter()
+    assert native.decompress(blob) == data, \
+        f"[{tag}] native.decompress of the lib-less container differs"
+    t_native = time.perf_counter() - t0
+    print(f"[{tag}] {n} bytes, {n_frames} frames, chunk {chunk}, quality "
+          f"{opts.quality}: lib-less container {len(blob)} B "
+          f"({len(blob) / n:.4f}), with the library {len(blob_lib)} B "
+          f"({len(blob_lib) / n:.4f}); the lib-less one round-trips on the "
+          f"card and through native.decompress ({t_native:.3f} s) | {smi}")
+    _nn_line(tag, "encode e2e", n, off["enc_s"], on["enc_s"], smi)
+    _nn_line(tag, "encode host stage (each frame's trace and its packing "
+             "on the pool, first start to last end)", n, off["host_s"],
+             on["host_s"], smi)
+    _nn_line(tag, "decode e2e", n, off["dec_s"], on["dec_s"], smi)
+    if chunk:
+        _nn_line(tag, "decode structure pass (on the pool, first start to "
+                 "last end)", n, off["struct_s"], on["struct_s"], smi)
+        _nn_line(tag, "decode script execution (first start to last end)",
+                 n, off["exec_s"], on["exec_s"], smi)
+    _nn_line(tag, "CRC32c of the input, alone (each decode checks it)", n,
+             off["crc_s"], on["crc_s"], smi)
+    print(f"[{tag}] without the library: encode launches "
+          f"{off['enc_launches']}, frames {off['enc_stats']} | decode "
+          f"launches {off['dec_launches']}, frames {off['dec_stats']}, "
+          f"scripts {scripts} | with it: encode launches "
+          f"{on['enc_launches']}, frames {on['enc_stats']}, decode launches "
+          f"{on['dec_launches']} | {smi}")
+    el, dl, st = off["enc_launches"], off["dec_launches"], off["enc_stats"]
+    if chunk:
+        # no hybrid: both streams of every frame on the card
+        assert st["cmd_host"] == 0 and st["lit_device"] == n_frames and \
+            st["cmd_device"] + st["cmd_generic"] == n_frames, st
+        assert el.get("lit_pass") and el.get("rans_encode") and \
+            (el.get("cmd_pass") or el.get("deferred_pass")), el
+        assert off["dec_stats"] == {"device_frames": n_frames,
+                                    "host_frames": 0, "golden_frames": 0}, \
+            off["dec_stats"]
+        assert dl.get("lit_decode") and scripts == ["CmdScript"], \
+            (dl, scripts)
+        cmp = _deferred_compare(data, opts, device, f"{tag}-compare", smi,
+                                got=host)
+        with _native_absent():
+            cmp["decode_group"] = phase_compare(
+                blob, device, f"{tag}-dec-compare", smi, cut=DEC_CMP_CHUNKS)
+    else:
+        assert el == {"model_pass": 2, "rans_encode": 1}, el
+        assert dl == {"scan_decode": 1}, dl
+        cmp = _adaptive_compare(data, opts, blob, device, f"{tag}-compare",
+                                smi, steps=OPT_AD_CMP_STEPS,
+                                scan_steps=OPT_SCAN_CMP_STEPS,
+                                traces=[t for t, _c in host])
+    launches = {**el, **dl}
+    print(f"[{tag}] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+    return {k: (e, launches[ENTRY_MODULES[k].NAME]) for k, e in cmp.items()}
+
+
+def phase_no_native(corpus: bytes, device, smi: str) -> dict:
+    """The port without its native library ([no-native]): native.load
+    patched to return None, so the host stages take the reference's
+    Python routes (the greedy parse, the Python dictionary scan and trace
+    FSM, the golden structure pass and script executor) while every
+    device stage stays on its kernel, at metablock 2^18 with 32 KiB
+    literal sub-streams: the first NN_BYTES at chunk 256 (quality 10)
+    and at chunk 0, one NN_Q11_BYTES frame at quality 11 (chunk 256),
+    each as _nn_case runs it.  Returns each kernel's (entry, launches),
+    the cases' compares summed into one entry and their launches
+    added."""
+    t_all = time.perf_counter()
+    base = dict(metablock_size=MB_SIZE)
+    cases = [("no-native-c256", corpus[:NN_BYTES],
+              dt.DivansOptions(chunk_nibbles=CHUNK, **base)),
+             ("no-native-c0", corpus[:NN_BYTES], dt.DivansOptions(**base)),
+             ("no-native-q11", corpus[:NN_Q11_BYTES],
+              dt.DivansOptions(chunk_nibbles=CHUNK, quality=11, **base))]
+    parts: dict = {}
+    for tag, data, opts in cases:
+        for k, (e, launches) in _nn_case(data, opts, device, tag,
+                                         smi).items():
+            parts.setdefault(k, []).append((e, launches))
+    print(f"[no-native] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+    return {k: (_sum_entries([e for e, _l in v]), sum(l for _e, l in v))
+            for k, v in parts.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3176,6 +3418,9 @@ def main() -> int:
           f"{time.perf_counter() - t_surface:.1f} s | {smi}")
     # metablock data parallelism: the sharded steps of parallel/dist
     dist_k = phase_dist(corpus, device, smi)
+    # the port without its native library: the reference's lib-less
+    # routes on the host, every device stage on its kernel
+    no_native = phase_no_native(corpus, device, smi)
     # one entry a kernel and path: its launches counted on that path's
     # run, its comparison made on that path's own inputs
     decode_src = "divans_tpu/codec/pallas_decode.py:182"
@@ -3260,12 +3505,11 @@ def main() -> int:
         (nocm, "quality-11 no-context-map encode", None),
         (bill, "bill", None),
         (bill_ad, "bill-ad", None)]
-    mods = {"cmd_pass": (cmd_pass, cmd_src), "lit_pass": (lit_pass, lit_src),
-            "deferred_pass": (deferred_pass, generic_src),
-            "encode_lanes": (rans_encode, rans_src),
-            "model_pass": (model_pass, model_src),
-            "decode_group": (lit_decode, decode_src),
-            "scan_decode": (scan_decode, scan_src)}
+    srcs = {"cmd_pass": cmd_src, "lit_pass": lit_src,
+            "deferred_pass": generic_src, "encode_lanes": rans_src,
+            "model_pass": model_src, "decode_group": decode_src,
+            "scan_decode": scan_src}
+    mods = {k: (ENTRY_MODULES[k], src) for k, src in srcs.items()}
     for got, enc_path, dec_path in option_paths:
         for k_name, (e, launches) in got.items():
             path = dec_path if k_name in ("decode_group", "scan_decode") \
@@ -3281,6 +3525,11 @@ def main() -> int:
                       ("decode_group", "dist decode")):
         k_name = key.split("-")[0]
         rows.append((k_name, mods[k_name][0], path, *dist_k[key],
+                     mods[k_name][1]))
+    # without the native library: every kernel that path ran, its
+    # launches over the three cases' runs, its compares summed
+    for k_name, (e, launches) in no_native.items():
+        rows.append((k_name, mods[k_name][0], "no-native", e, launches,
                      mods[k_name][1]))
     kernels = [{
         "name": k_name, "path": path, "route": "cuda",

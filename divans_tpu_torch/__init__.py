@@ -1,9 +1,10 @@
 """divans_tpu_torch: the PyTorch and CUDA port of divans_tpu.
 
 A second package beside divans_tpu (the JAX reference, which it imports
-nothing of).  Host stages run in the repo's native C++ library; the
-device stages run on an NVIDIA H100 through hand-written CUDA kernels
-(csrc/) with plain PyTorch around them.  Both entry points, compress
+nothing of).  Host stages run in the repo's native C++ library (or,
+where it cannot be built or loaded, in the reference's Python routes:
+native.py); the device stages run on an NVIDIA H100 through
+hand-written CUDA kernels (csrc/) with plain PyTorch around them.  Both entry points, compress
 and decompress, run on "cuda" unless the caller passes device="cpu",
 where each kernel's plain PyTorch version runs instead.
 """

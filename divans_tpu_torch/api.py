@@ -35,6 +35,14 @@ the host); a frame that native code refuses decodes on the golden
 engine.  A container whose flags name no adaptive profile, and an ECDF
 container (options= with external_probs, which the decoder must be
 given), decode on the golden engine whole, as in the reference.
+
+Without the native library (native.load() is None) every entry point
+still runs, as the reference's does: the host stages take its Python
+routes (the greedy parse, the Python trace FSM and dictionary scan, the
+golden structure pass and script executor, the golden engine for the
+host options and for frames outside the kernels, the CRC in Python)
+and the device stages stay on the card's kernels, so the containers are
+the reference's lib-less ones (its golden engine's bytes).
 """
 from __future__ import annotations
 
@@ -78,7 +86,7 @@ def host_only(options: DivansOptions) -> bool:
 
 def host_compress(data: bytes, options: DivansOptions) -> bytes:
     """The host-only encode: native.compress where its FSM covers the
-    options, else the golden engine."""
+    options, else (or without the library) the golden engine."""
     out = native.compress(data, options)
     return out if out is not None else engine_np.compress(data, options)
 

@@ -32,6 +32,11 @@ corrupt streams) is decoded again on the host by native.decode_metablock
 at chunk 0, the reference's own abstain-and-redecode design, and a frame
 that native code refuses too by the golden engine (engine_np).  STATS counts
 the frames by path.
+
+Without the native library both directions keep their device stages:
+the traces come from the greedy parse through the Python trace FSM
+(encode.frame_trace), and every flagged frame decodes on the golden
+engine, as in the reference (jax_engine.py:965-969, :1191-1202).
 """
 from __future__ import annotations
 

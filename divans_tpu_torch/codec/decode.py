@@ -13,6 +13,11 @@ Three stages, as in the reference:
   3. host C++ executes the command scripts (native.execute_script) into
      one preallocated output buffer, on a 2-thread finish pool.
 
+Without the native library, stages 1 and 3 are the reference's golden
+Python ones (deferred.decode_cmd_structure and deferred.execute_script,
+on a CmdScript), stage 2 stays on the card, and frames outside the
+kernel decode on the golden engine.
+
 The plain version of stage 2 (lit_decode.decode_group_plain) keeps the
 commit in plain PyTorch on int32 tensors (codec/lit_model.py, shared
 with the encode's literal model pass), as it was XLA (not Pallas) in
@@ -43,6 +48,7 @@ from ..ans.coder_np import ANSDecoder
 from ..options import DivansOptions
 from ..probability import scalar
 from . import deferred, engine_np, lit_decode, lit_model
+from ..errors import CorruptStream, ErrCode
 from .deferred import SUB_LIT, lit_subs_split
 
 LANES = 128
@@ -469,14 +475,41 @@ def _host_decode(f, layout, chunk):
     return raw, "golden"
 
 
+def _structure(f, chunk: int, layout):
+    """One frame's command script: native.decode_cmd_structure's, or
+    without the library the golden pass's (deferred.decode_cmd_structure,
+    a CmdScript), as the reference's decode falls back; None where native
+    code refuses the frame (it then decodes on the host)."""
+    if native.load() is None:
+        return deferred.decode_cmd_structure(f.cmd, f.raw_len,
+                                             DivansOptions(), chunk)
+    return native.decode_cmd_structure(f.cmd, f.raw_len, layout, chunk)
+
+
 def decode_structure(f, chunk: int, layout):
-    """Stage 1 for one frame: its native command script, or None when the
-    frame leaves the lane kernel's envelope (the mix/split/stride
+    """Stage 1 for one frame: its command script (_structure), or None
+    when the frame leaves the lane kernel's envelope (the mix/split/stride
     profiles, or a script the device cannot take)."""
     if layout.profile.name != "cm" or not layout.lo_bucketed:
         return None
-    sc = native.decode_cmd_structure(f.cmd, f.raw_len, layout, chunk)
+    sc = _structure(f, chunk, layout)
     return sc if sc is not None and sc.supported else None
+
+
+def execute(script, lit_bytes, out: np.ndarray) -> None:
+    """Stage 3 for one frame: its script run over its decoded literals
+    into `out`, the frame's uint8 slice of the output (native code for a
+    NativeScript, deferred.execute_script for a CmdScript, as the
+    reference's _execute dispatches).  A script that does not fill its
+    frame exactly raises CorruptStream."""
+    if isinstance(script, native.NativeScript):
+        native.execute_script(script, lit_bytes, out=out)
+        return
+    raw = deferred.execute_script(script, bytes(lit_bytes))
+    if len(raw) != out.size:
+        raise CorruptStream("script execution failed",
+                            ErrCode.SCRIPT_FAILED)
+    out[:] = np.frombuffer(raw, np.uint8)
 
 
 def lane_jobs(frames, ready):
@@ -497,14 +530,15 @@ def lane_jobs(frames, ready):
 
 
 def decode_structures(frames, chunk: int, layout) -> list | None:
-    """Stage 1 over a frame list: each frame's native command script, on
-    a thread pool (ctypes releases the interpreter lock), or None when a
-    frame leaves the lane kernel's envelope.  The port requires native
-    code, so unlike the reference there is no golden fallback."""
+    """Stage 1 over a frame list: each frame's command script
+    (_structure: native, or the golden pass without the library), or
+    None when a frame leaves the lane kernel's envelope.  The native pass
+    runs on a thread pool (ctypes releases the interpreter lock), the
+    golden one in turn."""
     def one(f):
-        return native.decode_cmd_structure(f.cmd, f.raw_len, layout, chunk)
+        return _structure(f, chunk, layout)
 
-    if len(frames) > 1:
+    if len(frames) > 1 and native.load() is not None:
         with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
             scripts = list(ex.map(one, frames))
     else:
@@ -575,8 +609,9 @@ def decompress_frames(frames, chunk: int, layout, device,
     def one(f):
         """("dev", script) for frames in the kernel envelope, else
         ("host" or "golden", raw bytes) decoded right here; with `backlog`
-        groups in flight every frame decodes here."""
-        if inflight[0] < backlog:
+        groups in flight every frame decodes here (with the native
+        library only, as in the reference)."""
+        if inflight[0] < backlog or native.load() is None:
             sc = decode_structure(f, chunk, layout)
             if sc is not None:
                 return "dev", sc
@@ -640,8 +675,7 @@ def decompress_frames(frames, chunk: int, layout, device,
                 o = c_off * s_bytes
                 lb[pos:pos + n_lits[j]] = arr[lane, o:o + n_lits[j]]
                 pos += n_lits[j]
-            native.execute_script(sc, lb,
-                                  out=out_buf[offsets[i]:offsets[i + 1]])
+            execute(sc, lb, out_buf[offsets[i]:offsets[i + 1]])
 
     finish_futs = []
     with tracelog.span("decode/device_pipeline", frames=len(frames)), \
@@ -714,8 +748,7 @@ def _decompress_frames_resumable(frames, chunk: int, layout, device, one,
                         done.append(i)
         for i in done:
             lb = np.concatenate([stream_buf[k] for k in frame_keys[i]])
-            native.execute_script(scripts[i], lb,
-                                  out=out_buf[offsets[i]:offsets[i + 1]])
+            execute(scripts[i], lb, out_buf[offsets[i]:offsets[i + 1]])
 
     seg_futs = []
     with tracelog.span("decode/segment_pipeline", frames=len(frames)), \
@@ -740,8 +773,7 @@ def _decompress_frames_resumable(frames, chunk: int, layout, device, one,
                     stream_frame[key] = i
             frame_keys[i] = keys
             if not keys:
-                native.execute_script(sc, b"",
-                                      out=out_buf[offsets[i]:offsets[i + 1]])
+                execute(sc, b"", out_buf[offsets[i]:offsets[i + 1]])
                 continue
             frame_left[i] = len(keys)
             while dec.pending_chunks() >= seg_need:

@@ -265,10 +265,17 @@ class DeferredPolicy:
 # golden deferred codec (policy plugged into the shared FSM)
 # ======================================================================
 
-def make_deferred_codec(io_cmd, io_lit, options, chunk: int, lag: int = LAG):
+def make_deferred_codec(io_cmd, io_lit, options, chunk: int, lag: int = LAG,
+                        script=None):
     """A MetablockCodec whose model policy is the deferred-v2 profile:
     per-stream chunk clocks, bucketed lo context, self-fed lit history.
-    (The decode's structure pass is native: native.decode_cmd_structure.)"""
+
+    With `script` (a CmdScript), the *structure* variant instead: literal
+    content is skipped (deferred-v2's per-stream decoupling means the cmd
+    FSM needs only the literals' lengths) and the decoded command
+    structure is recorded, the host half of the deferred decode.  It is
+    the golden twin of native.decode_cmd_structure, which the decode
+    takes when the library is there."""
     from .engine_np import MetablockCodec
 
     class _DeferredCodec(MetablockCodec):
@@ -353,7 +360,102 @@ def make_deferred_codec(io_cmd, io_lit, options, chunk: int, lag: int = LAG):
             pol.tick()
             return v
 
-    return _DeferredCodec()
+    if script is None:
+        return _DeferredCodec()
+
+    class _StructureCodec(_DeferredCodec):
+        def _literal_nibble(self, is_high, value, cur_byte_prior):
+            return 0  # the content lives on the (untouched) lit stream
+
+        def code_literal(self, cmd):
+            data = super().code_literal(cmd)
+            script.ops.append(("L", len(data)))
+            script.lit_total += len(data)
+            return data
+
+        def code_copy(self, cmd):
+            d, n = super().code_copy(cmd)
+            script.ops.append(("C", d, n))
+            return d, n
+
+        def code_dict(self, cmd):
+            w = super().code_dict(cmd)
+            script.ops.append(("D", w))
+            return w
+
+        def code_block_switch(self, which, btype_in, kind):
+            bt = super().code_block_switch(which, btype_in, kind)
+            if kind == 0 and bt != 0:
+                script.supported = False  # the kernel assumes block type 0
+            return bt
+
+        def code_prediction_mode(self, cmd):
+            pm = super().code_prediction_mode(cmd)
+            script.pm_count += 1
+            script.pred_mode = pm.literal_prediction_mode
+            return pm
+
+    return _StructureCodec()
+
+
+class CmdScript:
+    """Command structure decoded from the cmd stream alone by the golden
+    pass (decode_cmd_structure): ops ("L", n) / ("C", dist, n) / ("D",
+    word bytes), the literal byte total, and the literal model's
+    configuration from the PredictionMode (lcmap, speeds), as
+    native.NativeScript holds them.  `supported` is False when the stream
+    leaves the literal kernel's envelope (block switches, more than one
+    PredictionMode, non-UTF8 luts, a mixing mask, mixing off); the frame
+    then decodes on the host."""
+
+    def __init__(self):
+        self.ops: list[tuple] = []
+        self.lit_total = 0
+        self.pm_count = 0
+        self.pred_mode = -1
+        self.supported = True
+        self.lcmap: list[int] | None = None
+        self.speeds: list | None = None
+
+
+def decode_cmd_structure(cmd_stream: bytes, raw_len: int, options,
+                         chunk: int) -> CmdScript:
+    """Decode one deferred metablock's command structure (no literals)
+    in Python."""
+    from .engine_np import DecIO, _decode_loop
+    from .. import constants
+    script = CmdScript()
+    codec = make_deferred_codec(DecIO(cmd_stream), None, options, chunk,
+                                script=script)
+    _decode_loop(codec, raw_len)
+    lbk = codec.lbk
+    script.lcmap = [int(x) for x in lbk.literal_context_map[:64]]
+    script.speeds = list(lbk.literal_adaptation)
+    if script.pm_count != 1:
+        script.supported = False
+    if not lbk.combine_literal_predictions:
+        script.supported = False  # the kernel always mixes (cm profile)
+    if any(lbk.mixing_mask):
+        script.supported = False  # the kernel assumes no mixing mask
+    if script.pred_mode != constants.LITERAL_PREDICTION_MODE_UTF8:
+        script.supported = False  # the kernel takes the UTF8 luts
+    return script
+
+
+def execute_script(script: CmdScript, lit_bytes: bytes) -> bytes:
+    """Replay a CmdScript with its decoded literal bytes."""
+    from .engine_np import _execute_copy
+    out = bytearray()
+    pos = 0
+    for op in script.ops:
+        if op[0] == "L":
+            out += lit_bytes[pos:pos + op[1]]
+            pos += op[1]
+        elif op[0] == "C":
+            _execute_copy(out, op[1], op[2])
+        else:
+            out += op[1]
+    return bytes(out)
 
 
 def encode_metablock(raw: bytes, commands, options,

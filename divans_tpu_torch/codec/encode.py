@@ -10,7 +10,11 @@ divans_tpu/codec/jax_engine.compress.
     (quality 11, the IR optimizer), and for every frame when the caller
     bills (`billing`, as jax_engine.compress skips its hybrid for
     billing_out): each frame is traced on the host and the card codes
-    both streams, one cmd lane per frame.
+    both streams, one cmd lane per frame.  Without the native library
+    every frame takes these lanes, as in the reference (no hybrid,
+    jax_engine.py:817): the greedy parse's command list through the
+    Python trace FSM (codec/trace), the literals packed for kernel 3 by
+    lit_pass.pack_lit_row.
 
 Per metablock (frame), on a pool of up to 8 host threads: the trace
 (frame_trace: the mechanical FSM, or the matcher's command list
@@ -151,7 +155,7 @@ def frame_trace(raw: bytes, options, layout) -> np.ndarray:
     matcher's command list (ir/matcher.build_commands: quality 11, the
     IR optimizer) through the native FSM, or through the Python trace
     FSM (codec/trace) where native code refuses the list (quality 11
-    without the context map)."""
+    without the context map) or is absent."""
     if native.supports(options):
         trace = native.build_trace(raw, options, layout)
         if trace is not None:
@@ -170,18 +174,24 @@ def host_frame(raw: bytes, options, layout, chunk: int,
     card on the uniform path (options beyond the mechanical trace, or
     `billing`, as in the reference): to the cmd pass when its speeds are
     constant per row, else to the generic pass.  The literals go to the
-    lit pass when pack_lit takes them, else to the generic pass.  A
+    lit pass when pack_lit (or without the library its numpy twin,
+    lit_pass.pack_lit_row) takes them, else to the generic pass.  A
     trace for the generic pass is range-checked here
     (deferred_pass.check_lane).  With `billing` the frame's trace is
     kept (HostFrame.trace)."""
     lit_base = layout.segments["lit_hi"][0]
     trace = frame_trace(raw, options, layout)
-    hybrid = native.supports(options) and not billing
-    packed = native.pack_lit(trace, lit_base) if in_envelope(layout) \
-        else None
+    # without the native library: no hybrid (the reference's
+    # jax_engine.py:817) and the literals packed by the numpy twin
+    have_native = native.load() is not None
+    hybrid = have_native and native.supports(options) and not billing
+    packed = native.pack_lit(trace, lit_base) \
+        if have_native and in_envelope(layout) else None
     cmd_t = lit_t = None
     if not hybrid or packed is None:
         (cmd_t,), (lit_t,), *_ = split_stream_traces([trace], layout)
+        if not have_native and in_envelope(layout):
+            packed = lit_pass.pack_lit_row(lit_t)
     cmd_b = cmd_row = cmd_spd = None
     if hybrid:
         cmd_b = native.encode_streams(trace, layout.num_rows, chunk, sel=1,

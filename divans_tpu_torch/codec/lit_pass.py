@@ -80,6 +80,48 @@ def assemble_lit_rows(rows, spds, n_padded: int):
     return packed, spd
 
 
+def pack_lit_row(t: np.ndarray):
+    """One frame's rebased lit trace [T, 10] -> (packed row uint16[T/2],
+    spd int32[6]), or None when the trace leaves the packed-byte envelope
+    (an odd step count, a hi/lo pair that disagrees on activity or
+    mixing, rows off the bucketed cm pattern, a dead first step).  The
+    numpy twin of native.pack_lit (its rows, its speeds, its refusals),
+    which the encode takes without the library; the port of the
+    reference's pallas_lit_pass.pack_lit_row."""
+    n = t.shape[0]
+    if n % 2:
+        return None
+    spd = np.zeros(6, np.int32)
+    if n == 0:
+        return np.zeros(0, np.uint16), spd
+    flat = t[:, 0]
+    hi_f = flat[0::2]
+    hi_v, lo_v = t[0::2, 1], t[1::2, 1]
+    act = ((t[:, 3] != 0) | (t[:, 5] != 0)).astype(np.int32)
+    act_h, act_l = act[0::2], act[1::2]
+    mix_h, mix_l = t[0::2, 5], t[1::2, 5]
+    if (act_h != act_l).any() or (mix_h != mix_l).any():
+        return None
+    ctx = np.where(act_h != 0, hi_f - 1, 0)
+    if ((ctx < 0) | (ctx >= 64)).any():
+        return None
+    idx_expect = 65 + (ctx >> 3) * 16 + hi_v
+    if (np.where(act_l != 0, flat[1::2], idx_expect) != idx_expect).any():
+        return None
+    # mixing steps read the cm rows of the bucketed cm layout
+    exp_h = 193 + ctx
+    exp_l = 257 + hi_v * 8 + (ctx >> 3)
+    if (np.where(mix_h != 0, t[0::2, 7], exp_h) != exp_h).any():
+        return None
+    if (np.where(mix_l != 0, t[1::2, 7], exp_l) != exp_l).any():
+        return None
+    if t[0, 3] == 0:
+        return None   # the speeds are read from the first byte's steps
+    spd[:] = [t[0, 3], t[0, 4], t[1, 8], t[1, 9], t[0, 8], t[0, 9]]
+    row = (ctx | (hi_v << 6) | (lo_v << 10) | (act_h << 14) | (mix_h << 15))
+    return row.astype(np.uint16), spd
+
+
 def from_tpu_lit_planes(packed, spd_pl):
     """The TPU kernel's inputs (packed [NG, C, S, G] with lane G*g + l at
     [g, :, :, l], spd planes [NG, 8, 128] with lane l's scalar r over

@@ -10,10 +10,11 @@ stream and is computed as it goes.
 
 Both adapters run on the host, as the reference's do: each frame is
 coded by the native library (native.build_trace and encode_streams;
-native.decode_metablock), else by the golden engine (codec/engine_np,
-codec/deferred).  They launch nothing on the card and take no device;
-a card launch a metablock would be slower than the host (the adaptive
-decode scan takes tens of ms on one frame).
+native.decode_metablock), else (a frame it refuses, or every frame
+without it) by the golden engine (codec/engine_np, codec/deferred).
+They launch nothing on the card and take no device; a card launch a
+metablock would be slower than the host (the adaptive decode scan
+takes tens of ms on one frame).
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ class CompressorWriter(io.RawIOBase):
             layout = ModelLayout(
                 PROFILES[profile_for_options(self.options)])
             trace = native.build_trace(raw, self.options, layout)
-            if trace is None:
+            if trace is None and native.load() is not None:
                 trace = native.build_trace_cmds(
                     raw, build_commands(raw, self.options), self.options,
                     layout)

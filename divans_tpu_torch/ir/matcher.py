@@ -15,7 +15,10 @@ block split (ir/blocks) and the prior-bitmask mask (ir/detect).  The
 heavy parts run in the native library (native.dict_scan,
 native.find_matches_optimal, native.find_matches, and the trace FSM and
 stream coder that measure a parse); Python builds the dictionary index
-once per process and assembles the command list.
+once per process and assembles the command list.  Without the native
+library, as in the reference: no optimal parse, so qualities 10 and 11
+take the greedy parse (quality 11 skips the parse selection), and the
+dictionary scan runs in Python (_dict_best_at at each position).
 
 Emits [PredictionMode, (Literal | Copy | Dict | BlockSwitch*)...] for one
 metablock.  The reference's environment knobs are module constants here,
@@ -142,8 +145,48 @@ def _flatten(buckets: dict):
 
 def _dict_scan(data: bytes):
     """(out_len, ent_idx) i32[n]: the longest dictionary-transform output
-    at every position (native.dict_scan)."""
-    return native.dict_scan(data, _dict_flat_index())
+    at every position (native.dict_scan; without the library the same
+    scan in Python, _dict_best_at at each position)."""
+    index = _dict_flat_index()
+    res = native.dict_scan(data, index)
+    if res is not None:
+        return res
+    n = len(data)
+    out_len = np.zeros(max(1, n), np.int32)
+    ent_idx = np.full(max(1, n), -1, np.int32)
+    grams, boff = index[:2]
+    if n < MIN_MATCH or grams.shape[0] == 0:
+        return out_len[:n], ent_idx[:n]
+    buckets = _dict_index()
+    for i in range(n - 3):
+        hit = _dict_best_at(data, i)
+        if hit is not None:
+            flen = hit[0]
+            out_len[i] = flen
+            # the entry id: its place in the flattened bucket
+            g = int.from_bytes(data[i:i + 4], "big")
+            base = int(boff[int(np.searchsorted(grams, g))])
+            for k, e in enumerate(buckets[g]):
+                if len(e[0]) == flen and data[i:i + flen] == e[0]:
+                    ent_idx[i] = base + k
+                    break
+    return out_len, ent_idx
+
+
+def _dict_best_at(data, i: int, limit: int | None = None):
+    """The longest dictionary-transform output matching data[i:...] and
+    ending by `limit` (default the end), as (final length, word size,
+    word id, transform), or None."""
+    if i + 4 > len(data):
+        return None
+    b = _dict_index().get(int.from_bytes(data[i:i + 4], "big"))
+    if b is None:
+        return None
+    hi = len(data) if limit is None else limit
+    for (out, wlen, wid, tid) in b:
+        if i + len(out) <= hi and data[i:i + len(out)] == out:
+            return (len(out), wlen, wid, tid)
+    return None
 
 
 _SCAN_CACHE = threading.local()
@@ -191,11 +234,12 @@ def default_prediction_mode(options: DivansOptions) -> cmds.PredictionMode:
 def find_matches_optimal(data: bytes, quality: int):
     """The cost-model optimal parse (quality >= 10) as a list of
     [position, distance, length] (distance 0 = a dictionary edge), or
-    None for fewer than MIN_MATCH bytes.  Quality 11 searches
+    None for fewer than MIN_MATCH bytes or without the native library
+    (the parse is native code only).  Quality 11 searches
     Q11_DEPTH-deep chains over a Q11_KCAND-entry frontier and adds the
     dictionary edges; quality 10 keeps the mechanical trace's parse
     (native.Q10_DEPTH, native.Q10_KCAND)."""
-    if len(data) < MIN_MATCH:
+    if len(data) < MIN_MATCH or native.load() is None:
         return None
     if quality >= 11:
         dlen, dcost = _dict_candidate_arrays(data)
@@ -257,16 +301,19 @@ def find_matches(data: bytes, quality: int) -> list:
     takes the optimal parse with dictionary edges unless the greedy
     parse (native.find_matches) codes the frame's first
     PARSE_MEASURE_CAP bytes smaller; quality 10 takes the optimal parse;
-    below 10 the greedy matcher."""
+    below 10, and at 10 and 11 without the native library (no optimal
+    parse), the greedy matcher."""
     n = len(data)
     if n < MIN_MATCH:
         return []
-    if quality < 10:
+    opt = find_matches_optimal(data, quality) if quality >= 10 else None
+    if opt is None:
         return _find_matches_greedy(data, quality)
-    opt = find_matches_optimal(data, quality)
     if quality < 11:
         return opt
-    greedy = native.find_matches(data, quality).tolist()
+    greedy = native.find_matches(data, quality)
+    greedy = (_find_matches_greedy(data, quality) if greedy is None
+              else greedy.tolist())
     cap = min(n, PARSE_MEASURE_CAP)
     bo = _measured_total_bits(data[:cap], _clip_matches(opt, cap))
     bg = _measured_total_bits(data[:cap], _clip_matches(greedy, cap))

@@ -17,10 +17,18 @@ library is absent).  The port binds it itself, with the calls it needs:
   * the host-only `decompress`, a frame at a time;
   * `crc32c` (SSE4.2).
 
-If the library cannot be built or loaded, `load()` raises.  Where the
-native code refuses (`compress` returns None, `decode_metablock` None),
-the golden engine (codec/engine_np, codec/deferred) codes in Python, as
-in the reference.
+If the library cannot be built or loaded, `load()` warns once and
+returns None, and so does every wrapper below (`crc32c` computes the
+checksum in Python instead; `execute_script` takes a NativeScript, which
+only the library makes): each caller then takes the reference's
+Python route (the greedy parse and the Python dictionary scan in
+ir/matcher, the Python trace FSM codec/trace, the golden structure pass
+and script executor of codec/deferred, the golden engine codec/engine_np),
+while the device stages stay on the card.  The containers are then the
+reference's lib-less ones (its quality-10 parse is the greedy one).
+Where the native code refuses (`compress` returns None,
+`decode_metablock` None), the golden engine codes in Python too, as in
+the reference.  A library that loads and fails inside a call raises.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import functools
 import os
 import subprocess
 import threading
+import warnings
 
 import numpy as np
 
@@ -79,39 +88,59 @@ _VOID_SIGNATURES = {
     "dtpu_dict_scan": [_P, _I, _P, _I] + [_P] * 9,
 }
 
-_lib = None
+_lib = None        # the library; False once its build or load failed
 _lock = threading.Lock()
 
 
 def load():
-    """The native library, built with `make -C native` if absent."""
+    """The native library, built with `make -C native` if absent, or None
+    when it cannot be built or loaded (warned once; the failure is cached,
+    so no later call, from any thread, builds again)."""
     global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                _lib = _open()
+    return _lib or None
+
+
+def _open():
+    """The loaded library with its signatures set, or False (warned)."""
+    try:
         if not os.path.exists(_SO):
-            res = subprocess.run(["make", "-C", os.path.join(_ROOT, "native")],
+            res = subprocess.run(["make", "-C", os.path.join(_ROOT,
+                                                             "native")],
                                  capture_output=True, text=True)
             if res.returncode != 0:
-                raise RuntimeError("building the native library failed:\n"
-                                   + res.stdout + res.stderr)
+                raise OSError("make -C native failed:\n" + res.stdout
+                              + res.stderr)
         lib = ctypes.CDLL(_SO)
-        for fn, args in _SIGNATURES.items():
-            getattr(lib, fn).restype = ctypes.c_int32
-            getattr(lib, fn).argtypes = args
-        for fn, args in _VOID_SIGNATURES.items():
-            getattr(lib, fn).restype = None
-            getattr(lib, fn).argtypes = args
-        lib.dtpu_crc32c.restype = ctypes.c_uint32
-        lib.dtpu_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64,
-                                    ctypes.c_uint32]
-        _lib = lib
-        return lib
+    except OSError as e:
+        warnings.warn(f"the native library is unavailable, so the host "
+                      f"stages run in Python (the reference's lib-less "
+                      f"routes): {e}", RuntimeWarning, stacklevel=3)
+        return False
+    for fn, args in _SIGNATURES.items():
+        getattr(lib, fn).restype = ctypes.c_int32
+        getattr(lib, fn).argtypes = args
+    for fn, args in _VOID_SIGNATURES.items():
+        getattr(lib, fn).restype = None
+        getattr(lib, fn).argtypes = args
+    lib.dtpu_crc32c.restype = ctypes.c_uint32
+    lib.dtpu_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                ctypes.c_uint32]
+    return lib
 
 
 def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC32c through the library's SSE4.2 path, or the Python table
+    (container/crc32c.crc32c_py) without the library."""
     buf = data if isinstance(data, bytes) else bytes(data)
-    return load().dtpu_crc32c(buf or b"\0", len(buf), crc) & 0xFFFFFFFF
+    lib = load()
+    if lib is None:
+        from .container.crc32c import crc32c_py
+        return crc32c_py(buf, crc)
+    return lib.dtpu_crc32c(buf or b"\0", len(buf), crc) & 0xFFFFFFFF
 
 
 def _seg_array(layout: ModelLayout) -> np.ndarray:
@@ -198,23 +227,30 @@ def supports(options: DivansOptions) -> bool:
     return supports_trace(options)
 
 
-def find_matches(raw: bytes, quality: int) -> np.ndarray:
+def find_matches(raw: bytes, quality: int) -> np.ndarray | None:
     """Greedy+lazy hash-chain matches (dtpu_match), int32[n,3] rows of
-    (position, distance, length)."""
+    (position, distance, length); None without the library."""
+    lib = load()
+    if lib is None:
+        return None
     n = len(raw)
     matches = np.empty((max(1, n // 4 + 8), 3), np.int32)
-    nm = load().dtpu_match(raw or b"\0", n, quality,
-                           matches.ctypes.data_as(ctypes.c_void_p),
-                           matches.shape[0])
+    nm = lib.dtpu_match(raw or b"\0", n, quality,
+                        matches.ctypes.data_as(ctypes.c_void_p),
+                        matches.shape[0])
     if nm < 0:
         raise RuntimeError("match buffer overflow")
     return matches[:nm]
 
 
-def dict_scan(data: bytes, index) -> tuple[np.ndarray, np.ndarray]:
+def dict_scan(data: bytes, index):
     """(out_len i32[n], ent_idx i32[n]): the longest dictionary-transform
     output at every position (0 and -1 where none), over the flattened
-    index of ir/matcher._dict_flat_index."""
+    index of ir/matcher._dict_flat_index; None without the library
+    (ir/matcher then scans in Python)."""
+    lib = load()
+    if lib is None:
+        return None
     (grams, boff, blob, eo, el, _ew, _ei, _et, pref16, p8, m8) = index
     n = len(data)
     out_len = np.zeros(max(1, n), np.int32)
@@ -225,24 +261,27 @@ def dict_scan(data: bytes, index) -> tuple[np.ndarray, np.ndarray]:
     def ptr(a):
         return a.ctypes.data_as(ctypes.c_void_p)
 
-    load().dtpu_dict_scan(data, n, ptr(grams), grams.shape[0], ptr(pref16),
-                          ptr(boff), blob, ptr(eo), ptr(el), ptr(p8),
-                          ptr(m8), ptr(out_len), ptr(ent_idx))
+    lib.dtpu_dict_scan(data, n, ptr(grams), grams.shape[0], ptr(pref16),
+                       ptr(boff), blob, ptr(eo), ptr(el), ptr(p8), ptr(m8),
+                       ptr(out_len), ptr(ent_idx))
     return out_len, ent_idx
 
 
 def find_matches_optimal(data: bytes, depth: int, kcand: int,
                          dict_len: np.ndarray | None = None,
                          dict_cost: np.ndarray | None = None,
-                         lit_scale16: int = 0) -> np.ndarray:
+                         lit_scale16: int = 0) -> np.ndarray | None:
     """Cost-model optimal parse (dtpu_parse_optimal: literal costs, DP
     and repeat-distance rewrite in one call), int32[n,3] rows of
     (position, distance, length); distance 0 marks a dictionary edge.
     ir/matcher gives each quality's chain depth and candidate frontier
     width, and at quality 11 the per-position dictionary edges.  Distance
     cost 40/16 + 7/16 * bitlen bits; lit_scale16 0 = one calibrated
-    literal cost."""
+    literal cost.  None without the library (ir/matcher then parses
+    greedily)."""
     lib = load()
+    if lib is None:
+        return None
     n = len(data)
     out = np.zeros((n // 2 + 8, 3), np.int32)
     dl = None if dict_len is None else dict_len.ctypes.data_as(
@@ -265,13 +304,14 @@ def _mask_ok(mask: bytes) -> bool:
 def build_trace(raw: bytes, options: DivansOptions, layout: ModelLayout,
                 mask: bytes | None = None) -> np.ndarray | None:
     """raw bytes -> int32[n,10] trace (the mechanical trace FSM), or None
-    outside `supports_trace` or the FSM's envelope.  `mask` is an
-    8192-entry per-context mixing mask (a prior-bitmask detection's)."""
-    if not supports_trace(options):
+    outside `supports_trace` or the FSM's envelope, or without the
+    library.  `mask` is an 8192-entry per-context mixing mask (a
+    prior-bitmask detection's)."""
+    lib = load()
+    if lib is None or not supports_trace(options):
         return None
     if mask is not None and not _mask_ok(mask):
         return None
-    lib = load()
     n = len(raw)
     if options.quality >= 10 and n >= 4:
         matches = find_matches_optimal(raw, Q10_DEPTH, Q10_KCAND)
@@ -366,8 +406,11 @@ def build_trace_cmds(raw: bytes, commands, options: DivansOptions,
                      layout: ModelLayout) -> np.ndarray | None:
     """An explicit command list -> int32[n,10] trace through the C++ FSM
     (Dict commands, masks and literal block switches included), or None
-    when the list or the FSM is outside the envelope (codec/trace is
-    the Python FSM for those)."""
+    when the list or the FSM is outside the envelope, or without the
+    library (codec/trace is the Python FSM for those)."""
+    lib = load()
+    if lib is None:
+        return None
     res = _cmd_rows(commands, options)
     if res is None:
         return None
@@ -376,7 +419,6 @@ def build_trace_cmds(raw: bytes, commands, options: DivansOptions,
         return None   # a masked stream needs the mix or split layout
     if nb * 64 > layout.segments["cm_first"][1][0]:
         return None   # each block type needs 64 context rows
-    lib = load()
     n = len(raw)
     cap = 4 * n + 16384
     out = np.empty((cap, 10), np.int32)
@@ -392,11 +434,14 @@ def build_trace_cmds(raw: bytes, commands, options: DivansOptions,
 
 
 def encode_streams(trace: np.ndarray, num_rows: int, chunk: int = 0,
-                   sel: int = 3, lit_base: int = 0) -> tuple[bytes, bytes]:
-    """trace int32[n,10] -> (cmd_bytes, lit_field).  chunk > 0 selects the
-    deferred profile (lit output = the deferred-v3 sub-stream field).
-    sel: bit0 = code the cmd stream, bit1 = lit."""
+                   sel: int = 3, lit_base: int = 0):
+    """trace int32[n,10] -> (cmd_bytes, lit_field), or None without the
+    library.  chunk > 0 selects the deferred profile (lit output = the
+    deferred-v3 sub-stream field).  sel: bit0 = code the cmd stream, bit1
+    = lit."""
     lib = load()
+    if lib is None:
+        return None
     n = trace.shape[0]
     trace = np.ascontiguousarray(trace, np.int32)
     cap = 4 * n + 1024
@@ -417,11 +462,14 @@ def encode_streams(trace: np.ndarray, num_rows: int, chunk: int = 0,
 def pack_lit(trace: np.ndarray, lit_base: int):
     """Trace -> (packed lit row uint16[n_lit_bytes], spd int32[6],
     lit_row_count), or None when the trace leaves the packed-byte
-    envelope (a dead first literal step, a non-cm row pattern).  One
+    envelope (a dead first literal step, a non-cm row pattern) or without
+    the library (codec/lit_pass.pack_lit_row is the numpy twin).  One
     uint16 per literal byte: ctx | hi<<6 | lo<<10 | act<<14 | mix<<15;
     spd = (inc, lim) of speeds 0, 2, 3.  The C++ pass splits the stream
     and rebases the rows itself (GIL-free)."""
     lib = load()
+    if lib is None:
+        return None
     n = trace.shape[0]
     trace = np.ascontiguousarray(trace, np.int32)
     cap = n // 2 + 8
@@ -445,8 +493,9 @@ def compress(data: bytes,
     quality 11, the IR optimizer, block split), then both streams coded
     here.  Returns None outside that envelope (ECDF, streaming, a list
     the FSM refuses: clustered context maps, quality 11 without the
-    context map), where the golden engine (codec/engine_np) codes the
-    file.  The reference the card's encode is held against."""
+    context map) and without the library, where the golden engine
+    (codec/engine_np) codes the file.  The reference the card's encode
+    is held against."""
     from concurrent.futures import ThreadPoolExecutor
     from .container import format as fmt
     from .codec.deferred import chunk_to_flags
@@ -462,7 +511,7 @@ def compress(data: bytes,
     # the command-level envelope (the FSM may still refuse a list)
     cmds_ok = (options.prior_depth == 0 and options.external_probs is None
                and options.streaming_chunk_bytes == 0)
-    if not (supports_trace(options) or cmds_ok):
+    if load() is None or not (supports_trace(options) or cmds_ok):
         return None
     profile = profile_for_options(options)
     # masked and block-split streams stay per-nibble adaptive, as
@@ -530,8 +579,11 @@ def compress(data: bytes,
 
 def decode_metablock(cmd: bytes, lit: bytes, raw_len: int, use_cm: bool,
                      layout: ModelLayout, chunk: int = 0) -> bytes | None:
-    """Native serial decode of one frame; None = out of profile."""
+    """Native serial decode of one frame; None = out of profile, or no
+    library."""
     lib = load()
+    if lib is None:
+        return None
     masked = 1 if layout.profile.hi_s_shape is not None else 0
     seg, lut0, lut1, nctx = _seg_luts(layout)
     out = np.zeros(max(1, raw_len), np.uint8)
@@ -568,9 +620,10 @@ class NativeScript:
 
 def decode_cmd_structure(cmd: bytes, raw_len: int, layout: ModelLayout,
                          chunk: int) -> NativeScript | None:
-    """Native cmd-structure pass; None = out of profile."""
+    """Native cmd-structure pass; None = out of profile, or no library
+    (codec/deferred.decode_cmd_structure is the golden pass)."""
     lib = load()
-    if chunk <= 0:
+    if lib is None or chunk <= 0:
         return None
     seg, lut0, lut1, nctx = _seg_luts(layout)
     dargs = _dict_args()
@@ -644,8 +697,9 @@ def execute_script(script: NativeScript, lit_bytes,
 
 def decompress(blob: bytes) -> bytes:
     """Host-native decompress, each frame by `decode_metablock`, a frame
-    it refuses by the golden engine (codec/deferred.decode_metablock at
-    chunk > 0, codec/engine_np.decode_metablock at chunk 0), as
+    it refuses (every frame without the library) by the golden engine
+    (codec/deferred.decode_metablock at chunk > 0,
+    codec/engine_np.decode_metablock at chunk 0), as
     divans_tpu.native.decompress does."""
     from concurrent.futures import ThreadPoolExecutor
     from .codec import deferred, engine_np
@@ -675,7 +729,8 @@ def decompress(blob: bytes) -> bytes:
                                                      f.raw_len, opts)
         return raw
 
-    if len(frames) > 1:
+    # the pool only for native code, which releases the interpreter lock
+    if len(frames) > 1 and load() is not None:
         with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
             parts = list(ex.map(one, frames))
     else:
