@@ -117,8 +117,13 @@ Phases, each printing its line; any failure raises and exits non-zero:
      adaptive_edge_traces (coinciding rows, padding steps, the weight
      clamps, rows with a max of 0 or below) over the cm rows (model in
      shared memory) and the mix rows (global slab), the scan also on
-     frames with a flipped bit in a cmd and a lit stream and on
-     mix-profile lanes, to their end; one warm and three timed encodes
+     frames with a flipped bit in a cmd and a lit stream, on
+     mix-profile lanes, and on scan_path_lanes (frames written at the
+     trace level: wrapped literal lengths that send a copy's C_CS row
+     into the literal rows, the escape drain, in the cm and the mix
+     profile; a mix lane of ~3,000 micro-steps through the global slab,
+     mixing and not), each to its end, the lanes that reached each path
+     printed; one warm and three timed encodes
      through divans_tpu_torch.compress (each equal to the reference, the
      model pass's two launches and the rANS kernel's one), one encode with
      each stage timed (traces, upload, model pass, rANS, compaction, copy
@@ -184,7 +189,13 @@ Phases, each printing its line; any failure raises and exits non-zero:
  28. the streaming adapters (io_adapters) on the first 16 MiB at the
      defaults in 1 MiB writes and reads, on the host (no launch): the
      reader's output equals the input, the writer's container decodes
-     through decompress on the card (one scan launch);
+     through decompress on the card (one scan launch); then the port's C
+     API shim (divans_tpu_torch/c, [capi]) built with this machine's
+     compiler: the same 16 MiB through its example binary (no card
+     visible) and through the shim by ctypes at the same piece size,
+     each direction timed beside the adapters', the container equal to
+     the writer's, no kernel launched (one line instead where cc, make,
+     python3-config or the Python headers are missing);
  29. metablock data parallelism (parallel/dist, phase_dist) on the first
      16 MiB (64 frames) on two meshes, make_mesh() (every visible card)
      and four shards of card 0 on four streams: the sharded encode step
@@ -228,12 +239,14 @@ comparison on that path's inputs), and as the last line {"ok": true,
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import glob
 import hashlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import sysconfig
@@ -248,6 +261,7 @@ import divans_tpu_torch as dt
 from divans_tpu_torch import (api, cli, cuda_build, io_adapters, native,
                               tracelog)
 from divans_tpu_torch.ans import rans_encode
+from divans_tpu_torch.ans.coder_np import ANSEncoder
 from divans_tpu_torch.codec import (adaptive, billing, cmd_pass, decode,
                                     deferred_pass, encode, lit_decode,
                                     lit_pass, model_pass, scan_decode)
@@ -260,6 +274,7 @@ from divans_tpu_torch.codec.layout import (FLAG_PROFILES, PROFILE_FLAGS,
 from divans_tpu_torch.container import format as fmt
 from divans_tpu_torch.ir.detect import apply_detection
 from divans_tpu_torch.parallel import dist
+from divans_tpu_torch.probability.speed import u8_to_speed
 
 CORPUS_BYTES = 48 << 20
 Q11_BYTES = 16 << 20     # the quality-11 corpus: the first 16 MiB
@@ -2139,13 +2154,424 @@ def _flip(f, stream: str, seed: int):
     return fmt.MetablockFrame(f.raw_len, f.cmd, bytes(b))
 
 
-def _scan_edge_compare(data: bytes, opts, device, tag: str, smi: str):
+class ScanFrameWriter:
+    """One adaptive frame written at the trace level, for the scan's paths
+    that no command list reaches.  Each command's nibbles are traced as
+    the scan's FSM reads them (scan_decode.decode_scan_plain: every row
+    from the FSM registers, the header and the window, every blend speed
+    from SPEED_TAB or the header), in the serial FSM's order;
+    `scan_frames` codes the traces (model_pass.model_pass_plain's (start, freq), the
+    serial coder ans/coder_np).
+
+    `escape` writes a literal whose length wraps (L_LAST at 29 bits, a
+    negative mantissa): llen goes negative, the run writes one byte, and
+    the next copy's C_CS row, c_ccs + ((l4s >> 4) & 3) + 4 (llen - 1),
+    lands below 0, which the scan reads and writes at that plus R: a
+    literal row (csrc/scan_decode.cu drains the ring first).  `drains`
+    counts the coded cmd steps whose row is a literal row."""
+
+    def __init__(self, profile: str):
+        lay = scan_decode.layout_of(profile)
+        self.lay, self.r = lay, lay.num_rows
+        self.seg = {k: v[0] for k, v in lay.segments.items()}
+        self.lit_sel = lay.profile.lit_sel
+        self.rows: list[tuple] = []
+        self.out = bytearray()
+        self.l4s, self.llen = 3 << 4, 1
+        self.dlru = [4, 11, 15, 16]
+        self.dcm = [0, 1, 2, 3]
+        self.lcm = [0] * 64
+        self.pm_mode, self.combine = 3, 0
+        self.speeds = [(0x10, 0x2000)] * 4
+        self.drains = 0
+        self.micro = 0        # the scan's micro-steps so far
+        self.mix_micro = 0    # of them, literal nibbles coded mixed
+
+    # ------------------------------------------------------ coded steps
+
+    def _cmd(self, state: int, term: int, v: int, speed=None) -> None:
+        flat = scan_decode._i32(
+            self.seg[scan_decode._STATE_SEG[state]] + term)
+        row = flat + self.r if flat < 0 else flat
+        assert 0 <= row < self.r, (state, flat)   # read and written there
+        self.drains += row >= self.seg["lit_hi"]
+        inc, lim = speed or (int(x) for x in scan_decode.SPEED_TAB[state])
+        self.rows.append((row, v, 0, inc, lim, 0, 0, 0, 0,
+                          model_pass.NOOP_LIM))
+        self.micro += 1
+
+    def _rows_of(self, r0: int, p1: int, p2: int):
+        """(hi, lo, cm_hi, cm_lo) rows of a literal byte with high nibble
+        r0 after bytes p2, p1."""
+        seg, lay = self.seg, self.lay
+        sel = int(scan_decode.LUT0[self.pm_mode, p1]
+                  | scan_decode.LUT1[self.pm_mode, p2])
+        ctx = self.lcm[sel & 63]
+        if self.lit_sel == 0:
+            lo = ctx >> lay.lo_shift
+            return (seg["lit_hi"] + ctx, seg["lit_lo"] + lo * 16 + r0,
+                    seg["cm_first"] + ctx,
+                    seg["cm_second"] + r0 * lay.nctx_lo + lo)
+        return (seg["lit_hi"] + p1, seg["lit_lo"] + p1 * 16 + r0,
+                seg["cm_first"] + ctx,
+                seg["cm_second"] + r0 * lay.nctx_lo + ctx)
+
+    def _byte(self, b: int) -> None:
+        p1 = self.out[-1] if self.out else 0
+        p2 = self.out[-2] if len(self.out) > 1 else 0
+        hi, lo, cm_hi, cm_lo = self._rows_of(b >> 4, p1, p2)
+        inc, lim = self.speeds[0]
+        for flat, v, which, cm, cm_sp in ((hi, b >> 4, 1, cm_hi,
+                                           self.speeds[3]),
+                                          (lo, b & 15, 0, cm_lo,
+                                           self.speeds[2])):
+            if self.combine:
+                self.rows.append((flat, v, 1, inc, lim, 1, which, cm,
+                                  *cm_sp))
+                self.mix_micro += 1
+            else:
+                self.rows.append((flat, v, 1, inc, lim, 0, 0, 0, 0,
+                                  model_pass.NOOP_LIM))
+        self.micro += 2
+        self.out.append(b)
+
+    def _begin(self, v: int) -> None:
+        self._cmd(scan_decode.BEGIN, self.l4s >> 4, v)
+        if v == 3:
+            self.l4s = ((self.l4s >> 2) | 128) & 0xFF
+        elif v == 1:
+            self.l4s = ((self.l4s >> 2) | 64) & 0xFF
+
+    def _mant(self, state: int, acc: int, e: int, term=None, speed=None):
+        """The mantissa nibbles of acc (its top bit e preset), high first;
+        term(first), speed(first): the row term and speed of each."""
+        lrem = scan_decode._rum4(e)
+        first = 1
+        for nrem in range(lrem - 4, -1, -4):
+            self._cmd(state, term(first) if term else 0,
+                      (acc >> nrem) & 15, speed(first) if speed else None)
+            first = 0
+
+    # --------------------------------------------------------- commands
+
+    def literal(self, data: bytes) -> None:
+        """A literal run (BEGIN 3, its length, its bytes)."""
+        n = len(data)
+        assert n >= 1
+        s = scan_decode
+        self._begin(3)
+        if n <= 14:
+            self._cmd(s.L_CS, 0, n - 1)
+            self.llen = n
+        elif n <= 16:
+            self._cmd(s.L_CS, 0, 14)
+            self._cmd(s.L_BEG, 0, n - 15)   # llen kept: the scan's quirk
+        else:
+            acc = n - 15
+            e = acc.bit_length() - 1
+            self._cmd(s.L_CS, 0, 14)
+            if e <= 13:
+                self._cmd(s.L_BEG, 0, e + 1)
+            else:
+                self._cmd(s.L_BEG, 0, 15)
+                self._cmd(s.L_LAST, 0, e - 14)
+            self._mant(s.L_MANT, acc, e)
+            self.llen = n
+        for b in data:
+            self._byte(b)
+
+    def copy(self, n: int, dist: int) -> None:
+        """A copy of n >= 1 bytes from dist back: BEGIN 1, the length
+        (C_CS, or C_BEG and its mantissa), the distance (an LRU hit at
+        C_DMN, or C_DBEG and its mantissa)."""
+        s = scan_decode
+        assert 1 <= n and 1 <= dist <= len(self.out)
+        self._begin(1)
+        cs = ((self.l4s >> 4) & 3) + scan_decode._i32(
+            4 * min(self.llen - 1, 3))
+        if n < 15:
+            self._cmd(s.C_CS, cs, n)
+        else:
+            e = n.bit_length() - 1
+            assert 3 <= e <= 17
+            self._cmd(s.C_CS, cs, 15)
+            self._cmd(s.C_BEG, 0, e - 3)
+            clen = e + 1
+            self._mant(s.C_MANT, n, e,
+                       term=lambda first: (clen % 4) + 1 if first else 0)
+        aprior = self.dcm[min(max(n, 2) - 2, 3)]
+        dmn = aprior * 2 + (1 if self.llen < 8 else 0)
+        if dist in self.dlru:
+            self._cmd(s.C_DMN, dmn, self.dlru.index(dist))
+        else:
+            self._cmd(s.C_DMN, dmn, 15)
+            dbeg = aprior * 8 + (n.bit_length() >> 2)
+            if dist == 1:
+                self._cmd(s.C_DBEG, dbeg, 0)
+            else:
+                e = dist.bit_length() - 1
+                assert 1 <= e <= 13
+                self._cmd(s.C_DBEG, dbeg, e)
+                fi_d = ((e + 1) & 3) + 1
+                self._mant(
+                    s.C_DMANT, dist, e,
+                    term=lambda first: aprior * 5 + (fi_d if first else 0),
+                    speed=lambda first: (
+                        (0x4 << ((fi_d & 6) << ((fi_d & 2) >> 1)))
+                        if first else 0x4, 0x4000))
+        l0, l1, l2, l3 = self.dlru
+        if dist == l1:
+            self.dlru = [dist, l0, l2, l3]
+        elif dist == l2:
+            self.dlru = [dist, l0, l1, l3]
+        elif dist != l0:
+            self.dlru = [dist, l0, l1, l2]
+        for _ in range(n):
+            self.out.append(self.out[-dist])
+        self.micro += -(-n // min(scan_decode.COPY_CHUNK, dist))
+
+    def header(self, pm_mode: int, combine: int, speeds, lit_map,
+               dist_map) -> None:
+        """A prediction-mode header (BEGIN 7): the mode, the mixing flag,
+        four (inc, lim) speeds as 7-bit bytes, the literal and distance
+        context maps (mnemonics where the LRU holds the value, else
+        escapes), the mv_mode the profile takes (0, or 1 for stride)."""
+        s = scan_decode
+        self._begin(7)
+        self.lcm, self.dcm = [0] * 64, [0, 1, 2, 3]
+        self._cmd(s.P_ONLY, 0, pm_mode)
+        self.pm_mode = pm_mode
+        self._cmd(s.P_DCM, 0, combine)
+        self.combine = int((combine & 3) != 0)
+        self._cmd(s.P_PD, 0, 0)
+        for inc8, lim8 in speeds:
+            for k, v in enumerate((inc8 >> 3, inc8 & 7, lim8 >> 3,
+                                   lim8 & 7)):
+                self._cmd(s.P_SPD, k, v)
+        self.speeds = [(u8_to_speed(a), u8_to_speed(b)) for a, b in speeds]
+        for which, values in ((0, lit_map), (1, dist_map)):
+            lru = list(range(13))
+            for i, val in enumerate(values):
+                if val in lru:
+                    self._cmd(s.P_CMN, which, lru.index(val))
+                else:
+                    self._cmd(s.P_CMN, which, 15)
+                    self._cmd(s.P_CF, which, val >> 4)
+                    self._cmd(s.P_CS, which, val & 15)
+                pos = lru.index(val) if val in lru else 12
+                lru = [val] + lru[:pos] + lru[pos + 1:]
+                (self.lcm if which == 0 else self.dcm)[i] = val
+            self._cmd(s.P_CMN, which, 14)
+        self._cmd(s.P_MVMODE, 0, 1 if self.lit_sel else 0)
+
+    def escape(self, kind: str, n: int, dist: int, low: int) -> None:
+        """A literal whose length wraps, its one byte (low nibble `low`),
+        then a copy of n bytes from dist back whose C_CS row is that
+        byte's `kind` row ("hi", "lo", "cm_hi", "cm_lo"): the byte's high
+        nibble is chosen for the row, and where no high nibble makes the
+        row's index reachable (the C_CS index steps by 4), a one-byte
+        literal goes first to move the context."""
+        kinds = ("hi", "lo", "cm_hi", "cm_lo")
+        for pre in [None] + list(range(256)):
+            out = self.out + bytes([] if pre is None else [pre])
+            l4s = self.l4s if pre is None else ((self.l4s >> 2) | 128) & 0xFF
+            l4s = ((((l4s >> 2) | 128) & 0xFF) >> 2 | 64) & 0xFF
+            p1 = out[-1] if out else 0
+            p2 = out[-2] if len(out) > 1 else 0
+            for r0 in range(16):
+                t = self._rows_of(r0, p1, p2)[kinds.index(kind)]
+                x = t - self.r - self.seg["c_ccs"] - ((l4s >> 4) & 3)
+                if x % 4 == 0:
+                    break
+            else:
+                continue
+            break
+        else:
+            raise AssertionError(f"no reachable {kind} row")
+        if pre is not None:
+            self.literal(bytes([pre]))
+        acc = x // 4 - 14     # llen - 1 = x / 4: llen = acc + 15
+        u = acc & 0xFFFFFFFF
+        assert acc < 0 and u >> 29 & 1, acc   # L_LAST's 2^29, negative
+        s = scan_decode
+        self._begin(3)
+        self._cmd(s.L_CS, 0, 14)
+        self._cmd(s.L_BEG, 0, 15)
+        self._cmd(s.L_LAST, 0, 15)
+        self._mant(s.L_MANT, u, 29)
+        self.llen = acc + 15
+        self._byte((r0 << 4) | low)
+        drains = self.drains
+        self.copy(n, dist)
+        assert self.drains > drains
+
+    def finish(self) -> np.ndarray:
+        """BEGIN 15 (the end); the frame's trace."""
+        self._begin(15)
+        return np.array(self.rows, np.int32).reshape(-1, 10)
+
+
+def scan_frames(writers) -> list:
+    """The writers' frames: their traces through the plain model pass
+    (model_pass_plain, every lane in lockstep), each stream coded by the
+    serial rANS coder (ans/coder_np)."""
+    traces = [w.finish() for w in writers]
+    r = writers[0].r
+    assert all(w.r == r for w in writers)
+    flat, n_steps = model_pass.pack_traces(traces)
+    counts = [model_pass.lane_counts(t) for t in traces]
+    n_lane = max(max(c) for c in counts)
+    st, fr, _n = model_pass.model_pass_plain(
+        torch.from_numpy(flat), torch.from_numpy(n_steps), r, n_lane)
+    frames = []
+    for i, w in enumerate(writers):
+        streams = []
+        for s in (0, 1):
+            enc = ANSEncoder()
+            for a, f in zip(st[2 * i + s, :counts[i][s]].tolist(),
+                            fr[2 * i + s, :counts[i][s]].tolist()):
+                enc.put(a, f)
+            streams.append(enc.flush())
+        frames.append(fmt.MetablockFrame(len(w.out), *streams))
+    return frames
+
+
+SCAN_PATH_SEED = 15
+_VOCAB = [b"the ", b"scan ", b"ring ", b"warp ", b"row ", b"drain ",
+          b"slab ", b"model ", b"\n", b"(x) ", b"0x1f, ", b"=> "]
+
+
+def _text_of(rng, n: int) -> bytes:
+    """n bytes of seeded words, now and then a random byte."""
+    out = bytearray()
+    while len(out) < n:
+        out += _VOCAB[int(rng.integers(len(_VOCAB)))]
+        if rng.random() < 0.1:
+            out.append(int(rng.integers(256)))
+    return bytes(out[:n])
+
+
+def _header_of(w: ScanFrameWriter, rng, pm_mode: int, combine: int) -> None:
+    """A header with seeded speeds and context maps."""
+    speeds = [(int(rng.choice([40, 44, 48, 52, 56])),
+               int(rng.choice([88, 96, 104, 112, 120]))) for _ in range(4)]
+    p = w.lay.profile
+    w.header(pm_mode, combine, speeds,
+             [int(x) for x in rng.integers(0, p.nctx, 64)],
+             [int(x) for x in rng.permutation(p.nd)])
+
+
+def scan_path_lanes(profile: str, seed: int = SCAN_PATH_SEED) -> list:
+    """Frames that run the decode scan's two paths no command list reaches,
+    written at the trace level (ScanFrameWriter), each a dict of name,
+    frame, data (what it decodes to), drains (the coded cmd steps whose
+    row is a literal row: the kernel's escape drain), micro (the scan's
+    micro-steps) and mix_micro (literal nibbles coded mixed):
+      * escape-first: the frame's first command is a literal whose length
+        wraps, so the next copy's C_CS row is that byte's lo row while its
+        record is in flight;
+      * escape-in-flight: literal runs and copies, then a literal run, a
+        wrapped one and a copy onto its lo row; a header turns mixing on;
+        wrapped lengths onto a cm_lo, a hi row (two copies after it: two
+        drains) and a cm_hi row;
+      * slab (the mix profile only: the model in the global slab): ~3,000
+        micro-steps of literals and copies, first before any header
+        (mixing off), then under a header that mixes, then under one that
+        does not; mv_mode 0 in each, so the reference's scan runs it to
+        its end (it flags the mix frames that compress writes at their
+        mv_mode, jax_decode.py:603-606)."""
+    rng = np.random.default_rng(seed)
+    writers = {}
+
+    w = writers["escape-first"] = ScanFrameWriter(profile)
+    w.escape("lo", 6, 1, int(rng.integers(16)))
+    w.literal(_text_of(rng, 40))
+    w.copy(12, 7)
+    w.literal(_text_of(rng, 20))
+
+    w = writers["escape-in-flight"] = ScanFrameWriter(profile)
+    w.literal(_text_of(rng, 200))
+    w.copy(20, 50)
+    w.literal(_text_of(rng, 60))
+    w.copy(30, 100)
+    w.literal(_text_of(rng, 40))
+    w.escape("lo", 10, 30, int(rng.integers(16)))
+    w.literal(_text_of(rng, 60))
+    _header_of(w, rng, 2, 1)
+    w.literal(_text_of(rng, 150))
+    w.copy(17, 40)
+    w.literal(_text_of(rng, 30))
+    w.escape("cm_lo", 8, 20, int(rng.integers(16)))
+    w.literal(_text_of(rng, 40))
+    w.escape("hi", 4, 2, int(rng.integers(16)))
+    w.copy(5, 9)
+    w.literal(_text_of(rng, 30))
+    w.escape("cm_hi", 6, 11, int(rng.integers(16)))
+    w.literal(_text_of(rng, 20))
+
+    if profile == "mix":
+        w = writers["slab"] = ScanFrameWriter(profile)
+        w.literal(_text_of(rng, 300))
+        w.copy(40, 120)
+        w.literal(bytes(int(x) for x in rng.integers(0, 256, 150)))
+        w.copy(16, 16)
+        _header_of(w, rng, 1, 1)
+        w.literal(_text_of(rng, 300))
+        w.copy(25, 60)
+        w.literal(_text_of(rng, 250))
+        w.copy(100, 300)
+        _header_of(w, rng, 0, 0)
+        w.literal(_text_of(rng, 200))
+        w.copy(30, 80)
+        w.literal(_text_of(rng, 100))
+    frames = scan_frames(list(writers.values()))
+    return [dict(name=name, frame=f, data=bytes(w.out), drains=w.drains,
+                 micro=w.micro, mix_micro=w.mix_micro)
+            for (name, w), f in zip(writers.items(), frames)]
+
+
+def _scan_path_compare(device, tag: str, smi: str) -> int:
+    """The scan kernel against its plain version, to the lanes' end, on
+    scan_path_lanes' frames in the cm profile (the shared-model build) and
+    the mix profile (the slab build): the escape drain, and the slab past
+    its first micro-steps; every lane ok and equal to its data.  Prints
+    how many lanes reached each path; returns the error."""
+    errs, parts = [], []
+    for profile in ("cm", "mix"):
+        lanes = scan_path_lanes(profile)
+        args, (w, steps) = _scan_args([x["frame"] for x in lanes], device)
+        err, (w_k, ok_k, wp_k), plain_ms = _scan_compare(args, w, steps,
+                                                         profile)
+        errs.append(err)
+        for i, x in enumerate(lanes):
+            assert bool(ok_k[i]) and w_k[i, :len(x["data"])].cpu().numpy(
+            ).tobytes() == x["data"], f"[{tag}] {profile} {x['name']} differs"
+        drained = [x for x in lanes if x["drains"]]
+        build = "slab" if not model_pass.model_in_shared(
+            scan_decode.layout_of(profile).num_rows) else "shared-model"
+        parts.append(
+            f"{profile} ({build} build): {len(drained)} of {len(lanes)} lanes "
+            f"reached the escape drain ({sum(x['drains'] for x in drained)} "
+            f"cmd rows in the literal rows), "
+            + (f"{len(lanes)} ran the slab to their end (up to "
+               f"{max(x['micro'] for x in lanes)} micro-steps, "
+               f"{sum(x['mix_micro'] for x in lanes)} nibbles mixed), "
+               if build == "slab" else "")
+            + f"max_abs_err {err}, plain {plain_ms:.1f} ms")
+    print(f"[{tag}] decode_scan kernel == plain on the crafted lanes "
+          f"(scan_path_lanes; each ok and == its data): "
+          f"{'; '.join(parts)} | {smi}")
+    return max(errs)
+
+
+def _scan_edge_compare(data: bytes, opts, device, tag: str, smi: str) -> int:
     """The scan kernel against its plain version, to the lanes' end, on
     the first two frames of `data` at AD_EDGE_MB with a flipped bit in
-    the cmd and the lit stream (ok and wpos of corrupt lanes), and on two
+    the cmd and the lit stream (ok and wpos of corrupt lanes), on two
     mix-profile frames (the model in the global slab; the reference's
     scan flags them at the mode header, so only its first micro-steps run
-    there)."""
+    there), and on the crafted lanes of _scan_path_compare.  Returns the
+    error."""
     lib = scan_decode.build()
     assert lib.dtpu_scan_decode_n_params() == scan_decode.N_PARAMS
     edge = dataclasses.replace(opts, metablock_size=AD_EDGE_MB)
@@ -2166,6 +2592,7 @@ def _scan_edge_compare(data: bytes, opts, device, tag: str, smi: str):
           f"slab; {int(ok_mix.sum())} ok, wpos {wp_mix.tolist()}: flagged "
           f"at the mode header as the reference flags them; max_abs_err "
           f"{err_mix}) | {smi}")
+    return max(err, err_mix, _scan_path_compare(device, tag, smi))
 
 
 def _adaptive_compare(data: bytes, opts, ref: bytes, device, tag: str,
@@ -2202,7 +2629,9 @@ def _adaptive_compare(data: bytes, opts, ref: bytes, device, tag: str,
     sc = _scan_main_compare(frames, traces, profile, device, tag, smi,
                             scan_steps)
     if edges:
-        _scan_edge_compare(data, opts, device, tag, smi)
+        # the edge lanes' error folds into the entry's
+        sc["max_abs_err"] = max(sc["max_abs_err"], _scan_edge_compare(
+            data, opts, device, tag, smi))
     return {"model_pass": mp, "encode_lanes": re_, "scan_decode": sc}
 
 
@@ -2869,6 +3298,186 @@ def phase_stream(corpus: bytes, smi: str) -> None:
                      "stream-roundtrip", smi)
     assert dec == {"scan_decode": 1}, dec
     print(f"[stream] phase {time.perf_counter() - t_all:.1f} s | {smi}")
+    return blob, mb / t_w, mb / t_r
+
+
+# ------------------------------------------------ the C API shim
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+CAPI_DIR = os.path.join(REPO_ROOT, "divans_tpu_torch", "c")
+CAPI_OUT = os.path.join(REPO_ROOT, "divans_tpu_torch", "_build", "capi")
+CAPI_BYTES = STREAM_BYTES    # [capi]: the corpus's first 16 MiB
+NEEDS_MORE_INPUT, NEEDS_MORE_OUTPUT, FAILURE = 1, 2, 3
+
+
+def capi_missing() -> list:
+    """The tools the shim's build needs that this machine lacks."""
+    inc = sysconfig.get_config_var("INCLUDEPY") or ""
+    return [name for name, ok in (
+        ("cc", shutil.which("cc")), ("make", shutil.which("make")),
+        ("python3-config", shutil.which("python3-config")),
+        ("the Python headers", os.path.exists(os.path.join(inc,
+                                                            "Python.h"))))
+        if not ok]
+
+
+def capi_build() -> str:
+    """make -C divans_tpu_torch/c with this interpreter; the build
+    directory."""
+    subprocess.run(["make", "-C", CAPI_DIR, f"PYTHON={sys.executable}"],
+                   check=True, capture_output=True, timeout=300)
+    return CAPI_OUT
+
+
+def capi_lib(path: str):
+    """The shim loaded into this interpreter (ctypes.PyDLL: the GIL stays
+    held across each call), its entry points typed."""
+    lib = ctypes.PyDLL(path)
+    p, sz, u8 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint8
+    lib.divans_new_compressor.restype = p
+    lib.divans_set_option.argtypes = [p, u8, ctypes.c_uint32]
+    lib.divans_set_option.restype = u8
+    for fn in (lib.divans_encode, lib.divans_decode):
+        fn.argtypes = [p, p, sz, ctypes.POINTER(sz), p, sz,
+                       ctypes.POINTER(sz)]
+        fn.restype = u8
+    lib.divans_encode_flush.argtypes = [p, p, sz, ctypes.POINTER(sz)]
+    lib.divans_encode_flush.restype = u8
+    lib.divans_free_compressor.argtypes = [p]
+    lib.divans_new_decompressor.restype = p
+    lib.divans_free_decompressor.argtypes = [p]
+    lib.divans_last_error_code.restype = ctypes.c_int32
+    return lib
+
+
+def capi_encode(lib, data: bytes, piece: int, out_cap: int,
+                selectors=()) -> tuple:
+    """data through the shim's compressor: the options set by
+    divans_set_option (selector, value) pairs, the input fed `piece`
+    bytes a call, the output drained `out_cap` bytes a call.  Returns
+    (the container, each divans_set_option result, the result codes
+    seen)."""
+    c = lib.divans_new_compressor()
+    res = [lib.divans_set_option(c, sel, val) for sel, val in selectors]
+    out, codes = bytearray(), set()
+    buf = ctypes.create_string_buffer(out_cap)
+    size = ctypes.c_size_t
+    for off in range(0, len(data), piece):
+        chunk = data[off:off + piece]
+        in_off = size(0)
+        while True:
+            out_off = size(0)
+            r = lib.divans_encode(c, chunk, len(chunk), ctypes.byref(in_off),
+                                  buf, out_cap, ctypes.byref(out_off))
+            out += buf.raw[:out_off.value]
+            codes.add(r)
+            if r != NEEDS_MORE_OUTPUT:
+                break
+    while True:
+        out_off = size(0)
+        r = lib.divans_encode_flush(c, buf, out_cap, ctypes.byref(out_off))
+        out += buf.raw[:out_off.value]
+        codes.add(r)
+        if r != NEEDS_MORE_OUTPUT:
+            break
+    lib.divans_free_compressor(c)
+    return bytes(out), res, codes
+
+
+def capi_decode(lib, blob: bytes, piece: int, out_cap: int) -> tuple:
+    """blob through the shim's decompressor, fed `piece` bytes a call,
+    drained `out_cap` bytes a call (until a failure).  Returns (the bytes,
+    the last result, divans_last_error_code, the result codes seen)."""
+    d = lib.divans_new_decompressor()
+    out, codes, r = bytearray(), set(), NEEDS_MORE_INPUT
+    buf = ctypes.create_string_buffer(out_cap)
+    size = ctypes.c_size_t
+    for off in range(0, len(blob), piece):
+        chunk = blob[off:off + piece]
+        in_off = size(0)
+        while True:
+            out_off = size(0)
+            r = lib.divans_decode(d, chunk, len(chunk), ctypes.byref(in_off),
+                                  buf, out_cap, ctypes.byref(out_off))
+            out += buf.raw[:out_off.value]
+            codes.add(r)
+            if r != NEEDS_MORE_OUTPUT:
+                break
+        if r == FAILURE:
+            break
+    code = lib.divans_last_error_code()
+    lib.divans_free_decompressor(d)
+    return bytes(out), r, code, codes
+
+
+def phase_capi(corpus: bytes, stream: tuple, smi: str) -> None:
+    """The C API shim bound to the port (divans_tpu_torch/c), built with
+    this machine's compiler, on the corpus's first CAPI_BYTES at the
+    defaults: the example binary's round trip (its own process, no card
+    visible, so it can launch nothing), then the shim driven through
+    ctypes in this process at the [stream] piece size, each direction
+    timed: the container equal to the [stream] writer's, the output to the
+    input, no kernel launched (counted).  Where a tool the build needs is
+    missing, one line says which."""
+    missing = capi_missing()
+    if missing:
+        print(f"[capi] not built: this machine has no {', '.join(missing)} "
+              f"| {smi}")
+        return
+    t_all = time.perf_counter()
+    data = corpus[:CAPI_BYTES]
+    blob_stream, w_mbps, r_mbps = stream
+    t0 = time.perf_counter()
+    out_dir = capi_build()
+    t_build = time.perf_counter() - t0
+    mb = len(data) / 1e6
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "in")
+        with open(src, "wb") as f:
+            f.write(data)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   DIVANS_TPU_PYTHONPATH=REPO_ROOT,
+                   PATH=os.path.dirname(sys.executable) + os.pathsep
+                   + os.environ.get("PATH", ""))
+        t0 = time.perf_counter()
+        r = subprocess.run([os.path.join(out_dir, "example"), src], env=env,
+                           capture_output=True, text=True, timeout=600)
+        t_ex = time.perf_counter() - t0
+        # what the example's embedded interpreter pays before any byte
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c",
+                        "import divans_tpu_torch.capi_support"], env=env,
+                       check=True, timeout=300)
+        t_start = time.perf_counter() - t0
+    assert r.returncode == 0 and r.stdout.startswith(f"ok {len(data)} -> "), \
+        f"[capi] example failed: {r.stdout} {r.stderr}"
+    _launches_zeroed()
+    lib = capi_lib(os.path.join(out_dir, "libdivans_tpu_torch_capi.so"))
+    t0 = time.perf_counter()
+    blob, _res, enc_codes = capi_encode(lib, data, STREAM_PIECE, STREAM_PIECE)
+    t_enc = time.perf_counter() - t0
+    assert blob == blob_stream, "[capi] the shim's container differs from " \
+        "the streaming writer's"
+    t0 = time.perf_counter()
+    got, res, _code, dec_codes = capi_decode(lib, blob, STREAM_PIECE,
+                                             STREAM_PIECE)
+    t_dec = time.perf_counter() - t0
+    assert res == 0 and got == data, "[capi] the shim's decode differs"
+    launched = {k: m.LAUNCHES for k, m in ALL_KERNELS.items() if m.LAUNCHES}
+    assert not launched, f"[capi] the shim launched kernels: {launched}"
+    print(f"[capi] built (make -C divans_tpu_torch/c, {t_build:.1f} s); "
+          f"example {r.stdout.strip()}: the round trip of {len(data)} bytes "
+          f"and its two corrupt decodes (the flipped CRC's reads the whole "
+          f"container) in {t_ex:.2f} s wall ({mb / t_ex:.2f} MB/s), of "
+          f"which ~{t_start:.2f} s the interpreter's start and imports (a "
+          f"python3 importing capi_support, timed alone), no card visible "
+          f"| ctypes in {STREAM_PIECE}-byte pieces: "
+          f"divans_encode {mb / t_enc:.2f} MB/s (== the [stream] writer's "
+          f"container; results {sorted(enc_codes)}), divans_decode "
+          f"{mb / t_dec:.2f} MB/s (== the input; results "
+          f"{sorted(dec_codes)}), no kernel launched | [stream] writer "
+          f"{w_mbps:.2f} MB/s, reader {r_mbps:.2f} MB/s | {smi}")
+    print(f"[capi] phase {time.perf_counter() - t_all:.1f} s | {smi}")
 
 
 # ------------------------------------------------ metablock data parallelism
@@ -3408,13 +4017,14 @@ def main() -> int:
     print(f"[options] the option phases took "
           f"{time.perf_counter() - t_opts:.1f} s | {smi}")
     # the user surface: billing at chunk 256 and 0, the CLI, the
-    # streaming adapters
+    # streaming adapters, the C API shim over them
     t_surface = time.perf_counter()
     bill = phase_bill(corpus, device, smi)
     bill_ad = phase_bill_adaptive(corpus, device, smi)
     phase_cli(corpus, smi)
-    phase_stream(corpus, smi)
-    print(f"[surface] the billing, CLI and stream phases took "
+    stream = phase_stream(corpus, smi)
+    phase_capi(corpus, stream, smi)
+    print(f"[surface] the billing, CLI, stream and C API phases took "
           f"{time.perf_counter() - t_surface:.1f} s | {smi}")
     # metablock data parallelism: the sharded steps of parallel/dist
     dist_k = phase_dist(corpus, device, smi)

@@ -530,9 +530,12 @@ def cmd_records(cmd_states, cmd_words, raw_len, profile: str, lane: int,
 
 
 def scan_lanes(cmd_states, cmd_words, lit_states, lit_words, raw_len,
-               profile: str, window_size: int, max_steps: int):
+               profile: str, window_size: int, max_steps: int,
+               drains: np.ndarray | None = None):
     """(window, ok, wpos) of every lane, as numpy arrays, by the two-warp
-    decomposition."""
+    decomposition.  drains: None, or int [B, 2] that takes each lane's
+    count of the cmd warp's drains before a header and before a literal
+    row (the escape drain)."""
     prm = [int(x) for x in sd.params(profile)]
     lit_base = prm[sd.PARAM_SEGS.index("lit_hi")]
     n_micro = (max_steps + 3) & ~3
@@ -547,6 +550,8 @@ def scan_lanes(cmd_states, cmd_words, lit_states, lit_words, raw_len,
         pending = []
         for rec in _cmd_warp(sh, _Words(cmd_states[i], cmd_words[i]),
                              int(raw_len[i]), prm, n_micro, lit_base):
+            if rec[0] == "drain" and drains is not None:
+                drains[i, ("header", "row").index(rec[1])] += 1
             if rec[0] in ("drain", "stop"):
                 for p in pending:
                     lit.run(p)

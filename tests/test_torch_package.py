@@ -5,6 +5,7 @@ import ast
 import glob
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 
@@ -84,6 +85,28 @@ def test_no_jax_or_reference_imports(path):
         for root in roots:
             assert root not in ("jax", "jaxlib", "divans_tpu"), \
                 f"{_rel(path)}:{node.lineno} imports {root}"
+
+
+C_FILES = sorted(glob.glob(os.path.join(REPO, "divans_tpu_torch", "c", "**",
+                                        "*"), recursive=True))
+
+
+def test_c_shim_imports_only_the_port():
+    """The port's C shim (divans_tpu_torch/c) imports divans_tpu_torch
+    modules only, each of which exists, and no file there mentions
+    jax."""
+    found = []
+    for path in C_FILES:
+        if os.path.isdir(path):
+            continue
+        text = open(path, encoding="utf-8").read()
+        assert "jax" not in text.lower(), f"{_rel(path)} mentions jax"
+        if path.endswith(".c"):
+            found += re.findall(r'PyImport_ImportModule\("([^"]*)"\)', text)
+    assert found
+    for name in found:
+        assert name.split(".")[0] == "divans_tpu_torch", name
+        assert importlib.util.find_spec(name) is not None, name
 
 
 def test_decompress_without_cuda_raises(monkeypatch):

@@ -11,7 +11,16 @@ batch shape.  The kernel's two-warp design (csrc/scan_decode.cu: the cmd
 warp's records, the literal warp's warp-wide rows) is emulated on the
 host by tests/adaptive_lanes.py and held to the same outputs, exactly:
 at each lane's end, cut at 1001 and 1004 micro-steps, cut inside a
-literal run and inside a copy, on flipped bits, stride and mix lanes."""
+literal run and inside a copy, on flipped bits, stride and mix lanes.
+
+The two paths of the kernel that no command list reaches run on frames
+written at the trace level (chip_smoke.scan_path_lanes): the escape drain
+(a wrapped literal length sends the next copy's C_CS row into the
+literal rows, so the cmd warp drains the ring first; the emulation counts
+each drain) in the cm and mix profiles, and the mix model in the global
+slab past its first micro-steps (mv_mode 0 frames that mix, then do
+not).  On them decode_scan_plain equals the reference's scan and the
+emulation equals both, exactly."""
 import glob
 import os
 
@@ -27,6 +36,7 @@ from divans_tpu.ir import matcher as jmatcher
 from divans_tpu.options import DivansOptions as JOptions
 
 import adaptive_lanes
+import chip_smoke
 from divans_tpu_torch.codec import scan_decode
 from divans_tpu_torch.container import format as fmt
 
@@ -86,11 +96,17 @@ def dictionary_index():
 
 
 @pytest.fixture(scope="module")
-def cm_batch(dictionary_index):
+def cm_paths():
+    """chip_smoke.scan_path_lanes("cm"): the escape-drain lanes."""
+    return chip_smoke.scan_path_lanes("cm")
+
+
+@pytest.fixture(scope="module")
+def cm_batch(dictionary_index, cm_paths):
     """(frames, data of each clean frame or None): multiblock text with a
     binary tail, quality 11 (dict commands), a mixing variant, the edge
-    inputs, and two frames with a flipped bit in a cmd and a lit
-    stream."""
+    inputs, the escape-drain lanes, and two frames with a flipped bit in
+    a cmd and a lit stream."""
     rng = np.random.default_rng(7)
     text = _text(2 * MB, seed=1) + rng.integers(
         0, 256, 600, dtype=np.uint8).tobytes()
@@ -106,6 +122,8 @@ def cm_batch(dictionary_index):
         frames += got
         raws += [data[o:o + MB] for o in range(0, len(data), MB)]
     assert len(raws) == len(frames)
+    frames += [x["frame"] for x in cm_paths]
+    raws += [x["data"] for x in cm_paths]
     frames += [_flip(frames[0], "cmd", 1), _flip(frames[1], "lit", 2)]
     raws += [None, None]
     return frames, raws
@@ -143,6 +161,8 @@ def test_scan_matches_reference_cm(cm_batch, cm_scan):
     assert ok[:n_text].all() and ok[n_text + 1:-2].all()
     assert not ok[n_text]          # quality 11: its frame has dict commands
     assert not ok[-2]              # the cmd flip leaves the lane in error
+    for i, raw in enumerate(raws[-4:-2], len(raws) - 4):   # the escapes
+        assert ok[i] and window[i, :len(raw)].tobytes() == raw
 
 
 def test_scan_matches_reference_stride():
@@ -158,17 +178,42 @@ def test_scan_matches_reference_stride():
                     for i, f in enumerate(frames[:-1])) == data
 
 
-def test_scan_matches_reference_mix():
-    """The mix profile (the model past the kernel's shared memory, in a
-    global slab): the reference's scan flags its frames at the prediction
-    mode's header, and the port's lanes stop there with it."""
+@pytest.fixture(scope="module")
+def mix_batch():
+    """(frames, crafted lanes): the two frames compress writes for text
+    with a binary tail in the mix profile, then
+    chip_smoke.scan_path_lanes("mix") (escape drains, the slab lane)."""
     rng = np.random.default_rng(9)
     data = _text(MB, seed=5) + rng.integers(0, 256, 700,
                                             dtype=np.uint8).tobytes()
-    frames = _frames(data, force_stride_value=4)
-    ref, got = _both(frames, "mix")
+    paths = chip_smoke.scan_path_lanes("mix")
+    return _frames(data, force_stride_value=4) + [x["frame"] for x in paths], \
+        paths
+
+
+@pytest.fixture(scope="module")
+def mix_scan(mix_batch):
+    """(reference, port) scans of mix_batch's frames."""
+    return _both(mix_batch[0], "mix")
+
+
+def test_scan_matches_reference_mix(mix_batch, mix_scan):
+    """The mix profile (the model past the kernel's shared memory, in a
+    global slab): the reference's scan flags the frames compress writes at
+    the prediction mode's header (their mv_mode is 3, a constant mask,
+    where the scan takes 0 only: jax_decode.py:603-606), before any byte,
+    and the port's lanes stop there with it; the crafted mv_mode-0 lanes
+    run to their end (the slab lane ~3,000 micro-steps, mixing and not)
+    and decode their data, equal to the reference's."""
+    frames, paths = mix_batch
+    ref, got = mix_scan
     _assert_equal(ref, got)
-    assert len(frames) == 2 and not got[1].any()
+    n = len(frames) - len(paths)
+    assert n == 2 and not got[1][:n].any() and not got[2][:n].any()
+    assert got[1][n:].all()
+    for i, x in enumerate(paths, n):
+        assert got[0][i, :len(x["data"])].tobytes() == x["data"]
+    assert max(x["micro"] for x in paths) > 2000
 
 
 @pytest.mark.parametrize("max_steps", [1001, 1004])
@@ -298,3 +343,42 @@ def test_two_warp_scan_stride_and_mix():
     got = _lanes(mix, "mix")
     _assert_equal(_plain(mix, "mix", steps), got)
     assert not got[1].any()
+
+
+
+def _emulated(frames, idx, profile, scan):
+    """The emulation of lanes idx of a batch, at the batch's window and
+    max_steps, and its drains [len(idx), 2]; asserted equal to those
+    lanes of the batch's (reference, port) scans."""
+    w, steps = scan_decode.pack_frames(frames)[5:]
+    packed = scan_decode.pack_frames([frames[i] for i in idx])
+    drains = np.zeros((len(idx), 2), np.int64)
+    got = adaptive_lanes.scan_lanes(*packed[:5], profile, w, steps,
+                                    drains=drains)
+    for side in scan:
+        _assert_equal([a[idx] for a in side], got)
+    return got, drains
+
+
+def test_two_warp_scan_escape_drain(cm_batch, cm_scan, cm_paths):
+    """The escape drain: on the crafted cm lanes the emulation drains the
+    ring before each cmd row in the literal rows (as many times as the
+    writer sent a C_CS row there; in the first lane once, at its first
+    copy) and equals the plain scan and the reference, exactly."""
+    frames = cm_batch[0]
+    idx = list(range(len(frames) - 4, len(frames) - 2))
+    _got, drains = _emulated(frames, idx, "cm", cm_scan)
+    assert drains[:, 1].tolist() == [x["drains"] for x in cm_paths]
+    assert (drains[:, 1] > 0).all()
+
+
+def test_two_warp_scan_mix_paths(mix_batch, mix_scan):
+    """The slab build's paths: on the crafted mix lanes (escape drains
+    with the model in the global slab, the slab lane's thousands of
+    micro-steps) the emulation equals the plain scan and the reference,
+    and drains where the writer sent a cmd row into the literal rows."""
+    frames, paths = mix_batch
+    idx = list(range(len(frames) - len(paths), len(frames)))
+    _got, drains = _emulated(frames, idx, "mix", mix_scan)
+    assert drains[:, 1].tolist() == [x["drains"] for x in paths]
+    assert drains[:2, 1].min() > 0 and drains[2, 1] == 0
