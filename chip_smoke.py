@@ -125,12 +125,12 @@ Phases, each printing its line; any failure raises and exits non-zero:
      mixing and not), each to its end, the lanes that reached each path
      printed; one warm and three timed encodes
      through divans_tpu_torch.compress (each equal to the reference, the
-     model pass's two launches and the rANS kernel's one), one encode with
-     each stage timed (traces, upload, model pass, rANS, compaction, copy
-     back, assembly); one
+     model pass's two launches and the rANS kernel's one), one encode
+     traced (each tracelog span's host ms and, by torch.profiler's
+     key_averages, its device ms; the trace upload at 40 B a step); one
      warm and three timed decodes through divans_tpu_torch.decompress
      (equal to the corpus, one scan launch, no frame on the host), one
-     with each stage timed, and the host-only decode of the same
+     traced the same way, and the host-only decode of the same
      container beside it (every frame through native.decode_metablock);
  17. the same in the stride profile (use_context_map=False) on the first
      16 MiB (64 frames), one timed run each way;
@@ -2635,23 +2635,65 @@ def _adaptive_compare(data: bytes, opts, ref: bytes, device, tag: str,
     return {"model_pass": mp, "encode_lanes": re_, "scan_decode": sc}
 
 
+def _traced_call(fn):
+    """fn() once under torch.profiler (CPU and CUDA activities, every
+    thread where this torch's profiler can) with the tracelog on:
+    (its result, its spans, {span name: [host ms, calls, device ms]}),
+    the host ms summed over the span's events and the device ms from
+    key_averages() (the kernels and copies launched inside it)."""
+    kw = {}
+    try:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass
+    tracelog.clear()
+    tracelog.enable()
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA], **kw) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+    finally:
+        tracelog.enable(False)
+    evs = sorted(tracelog.events(), key=lambda e: e.t0)
+    tracelog.clear()
+    device = {ev.key: getattr(ev, "device_time_total",
+                              getattr(ev, "cuda_time_total", 0.0)) / 1e3
+              for ev in prof.key_averages()}
+    stages: dict = {}
+    for e in evs:
+        row = stages.setdefault(e.name, [0.0, 0, device.get(e.name, 0.0)])
+        row[0] += e.dt * 1e3
+        row[1] += 1
+    return out, evs, stages
+
+
+def _stage_text(stages: dict) -> str:
+    return ", ".join(f"{k} {h:.1f} host / {d:.1f} device ms"
+                     + (f" ({n} spans)" if n > 1 else "")
+                     for k, (h, n, d) in stages.items())
+
+
 def _adaptive_timed_encode(data: bytes, opts, device, tag: str,
                            smi: str) -> dict:
-    """One more encode with each stage timed (the card synchronised at
-    each stage's end); prints the stages and the trace upload."""
-    blocks = [data[o:o + opts.metablock_size]
-              for o in range(0, len(data), opts.metablock_size)]
-    timing: dict = {}
+    """One more encode through divans_tpu_torch.compress, traced
+    (_traced_call); prints each span's host and device ms and the trace
+    upload (40 B a step of the frames' traces)."""
     t0 = time.perf_counter()
-    adaptive.compress_frames(blocks, opts, _ad_layout(opts), device,
-                             timing=timing)
+    _blob, evs, stages = _traced_call(
+        lambda: dt.compress(data, opts, device=device))
     wall = time.perf_counter() - t0
-    up = timing.pop("upload_bytes")
-    stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timing.items())
-    print(f"[{tag}] timed encode ({len(blocks)} frames, {wall:.3f} s wall): "
-          f"{stages}; trace upload {up} B ({up / timing['upload'] / 1e9:.2f}"
-          f" GB/s, pageable) | {smi}")
-    return timing
+    steps = sum(e.meta["steps"] for e in evs
+                if e.name == "encode/frame_trace")
+    up = 40 * steps
+    up_ms = stages["encode/upload"][0]
+    print(f"[{tag}] traced encode ({stages['encode/frame_trace'][1]} "
+          f"frames, {wall:.3f} s wall): {_stage_text(stages)}; trace upload "
+          f"{up} B ({up / up_ms / 1e6:.2f} GB/s over the host span, "
+          f"pageable) | {smi}")
+    return stages
 
 
 def _host_decode_runs(frames, profile: str, data: bytes, runs: int):
@@ -2678,8 +2720,8 @@ def _adaptive_decode_runs(blob: bytes, data: bytes, device, tag: str,
     """One warm decode, then `runs` timed ones through
     divans_tpu_torch.decompress, each equal to `data`; the scan's
     launches and the frames by path counted over the first timed run
-    (expect_host frames on the host, when given); then one decode with
-    each stage timed, and the host-only decode of the same container
+    (expect_host frames on the host, when given); then one traced
+    decode (_traced_call), and the host-only decode of the same container
     (_host_decode_runs) beside it.  Returns the launches."""
     assert dt.decompress(blob) == data, f"[{tag}] warm decode differs"
     times = []
@@ -2700,17 +2742,16 @@ def _adaptive_decode_runs(blob: bytes, data: bytes, device, tag: str,
     if expect_host is not None:
         assert stats["host_frames"] == expect_host, stats
     mbps = len(data) / min(times) / 1e6
-    timing: dict = {}
-    _w, _mb, frames, _crc, flags = fmt.deserialize(blob)
-    adaptive.decompress_frames(frames, FLAG_PROFILES[flags], device,
-                               timing=timing)
-    steps = timing.pop("max_steps")
-    stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timing.items())
+    raw, evs, stages = _traced_call(lambda: dt.decompress(blob,
+                                                          device=device))
+    assert raw == data, f"[{tag}] the traced decode differs"
+    steps = next(e.meta["max_steps"] for e in evs if e.name == "decode/scan")
     print(f"[{tag}] decode e2e {mbps:.2f} MB/s best of {runs} after a warm "
           f"one ({', '.join(f'{t:.3f}' for t in times)} s), output == the "
           f"input | scan launches {launches} per decode, frames {stats} | "
-          f"timed decode: {stages}; the scan launch's max_steps {steps} | "
-          f"{smi}")
+          f"traced decode: {_stage_text(stages)}; the scan launch's "
+          f"max_steps {steps} | {smi}")
+    _w, _mb, frames, _crc, flags = fmt.deserialize(blob)
     host = _host_decode_runs(frames, FLAG_PROFILES[flags], data, runs)
     print(f"[{tag}] host-only decode of the same container "
           f"(native.decode_metablock at chunk 0 on "
@@ -2728,7 +2769,7 @@ def phase_adaptive(corpus: bytes, device, smi: str, tag: str, opts,
     plain versions on the main path's inputs (_adaptive_compare), one
     warm and `runs` timed encodes through divans_tpu_torch.compress (each
     equal to the reference, both encode kernels launched once an encode),
-    one stage-timed encode, and the decode (_adaptive_decode_runs).
+    one traced encode, and the decode (_adaptive_decode_runs).
     Returns each kernel's (entry, launches)."""
     ref, t_ref = phase_profile_reference(corpus, opts, f"{tag}-reference")
     cmp = _adaptive_compare(corpus, opts, ref, device, f"{tag}-compare",

@@ -96,68 +96,78 @@ def compress(data: bytes, options: DivansOptions | None = None,
     """The container of `data` under `options`.  With `billing_out` (a
     dict) it also gets the bits each substate coded (codec/billing.bill)
     and, under "__detail__", the per-CDF report (entropy_report); the
-    container is the same."""
-    options = options or DivansOptions()
-    dev = _device(device, "compress")
-    if host_only(options):
-        return host_compress(data, options)
-    if (options.stride_detection_quality or options.speed_detection_quality
-            or options.force_stride_value):
-        options = apply_detection(data, options)
-    chunk = options.chunk_nibbles
-    profile = profile_for_options(options)
-    flags = PROFILE_FLAGS[profile] | chunk_to_flags(chunk)
-    frames = []
-    bills = None if billing_out is None else []
-    if data:
-        layout = ModelLayout(PROFILES[profile], lo_bucketed=chunk > 0)
-        mb = options.metablock_size
-        blocks = [data[off:off + mb] for off in range(0, len(data), mb)]
-        if chunk:
-            frames = encode.compress_frames(blocks, options, layout, chunk,
-                                            dev, billing=bills)
-        else:
-            frames = adaptive.compress_frames(blocks, options, layout, dev,
-                                              billing=bills)
-    if bills:
-        traces = [t for t, _f in bills]
-        fpad = np.ones((len(bills), max(t.shape[0] for t in traces)),
-                       np.int32)
-        for i, (_t, f) in enumerate(bills):
-            fpad[i, :f.shape[0]] = f
-        billing_out.update(billing.bill(traces, fpad, layout))
-        billing_out["__detail__"] = billing.entropy_report(traces, fpad,
-                                                           layout)
-    with tracelog.span("encode/assemble", frames=len(frames)):
-        return fmt.serialize(frames, options.window_size, options.mb_log2,
-                             native.crc32c(data), flags=flags)
+    container is the same.  The call is one tracelog request, its root
+    span api/compress."""
+    with tracelog.span("api/compress", bytes=len(data)):
+        options = options or DivansOptions()
+        dev = _device(device, "compress")
+        if host_only(options):
+            return host_compress(data, options)
+        if (options.stride_detection_quality
+                or options.speed_detection_quality
+                or options.force_stride_value):
+            options = apply_detection(data, options)
+        chunk = options.chunk_nibbles
+        profile = profile_for_options(options)
+        flags = PROFILE_FLAGS[profile] | chunk_to_flags(chunk)
+        frames = []
+        bills = None if billing_out is None else []
+        if data:
+            layout = ModelLayout(PROFILES[profile], lo_bucketed=chunk > 0)
+            mb = options.metablock_size
+            blocks = [data[off:off + mb] for off in range(0, len(data), mb)]
+            if chunk:
+                frames = encode.compress_frames(blocks, options, layout,
+                                                chunk, dev, billing=bills)
+            else:
+                frames = adaptive.compress_frames(blocks, options, layout,
+                                                  dev, billing=bills)
+        if bills:
+            traces = [t for t, _f in bills]
+            fpad = np.ones((len(bills), max(t.shape[0] for t in traces)),
+                           np.int32)
+            for i, (_t, f) in enumerate(bills):
+                fpad[i, :f.shape[0]] = f
+            billing_out.update(billing.bill(traces, fpad, layout))
+            billing_out["__detail__"] = billing.entropy_report(traces, fpad,
+                                                               layout)
+        with tracelog.span("encode/assemble", frames=len(frames)):
+            return fmt.serialize(frames, options.window_size,
+                                 options.mb_log2, native.crc32c(data),
+                                 flags=flags)
 
 
 def decompress(blob: bytes, device=None,
                options: DivansOptions | None = None) -> bytes:
-    dev = _device(device, "decompress")
-    _w, _mb, frames, stored_crc, flags = fmt.deserialize(blob)
-    chunk = flags_to_chunk(flags)
-    stats = decode.STATS if chunk else adaptive.STATS
-    if options is not None and options.external_probs is not None:
-        # ECDF streams need the caller's probabilities: the golden engine
-        raw = engine_np.decompress(blob, options)
-        stats["golden_frames"] += len(frames)
-        return raw
-    if not frames:
-        fmt.check_crc(b"", stored_crc)
-        return b""
-    if chunk:
-        layout = ModelLayout(PROFILES[FLAG_PROFILES[flags & 0b11]],
-                             lo_bucketed=True)
-        raw = decode.decompress_frames(frames, chunk, layout, dev)
-    else:
-        profile = FLAG_PROFILES.get(flags)
-        if profile is None:
-            # flags the scan has no profile for: the golden engine
-            raw = engine_np.decompress(blob)
+    """The bytes of a container; one tracelog request, its root span
+    api/decompress."""
+    with tracelog.span("api/decompress", bytes=len(blob)):
+        dev = _device(device, "decompress")
+        with tracelog.span("decode/parse"):
+            _w, _mb, frames, stored_crc, flags = fmt.deserialize(blob)
+        chunk = flags_to_chunk(flags)
+        stats = decode.STATS if chunk else adaptive.STATS
+        if options is not None and options.external_probs is not None:
+            # ECDF streams need the caller's probabilities: the golden
+            # engine
+            raw = engine_np.decompress(blob, options)
             stats["golden_frames"] += len(frames)
             return raw
-        raw = adaptive.decompress_frames(frames, profile, dev)
-    fmt.check_crc(raw, stored_crc)
-    return raw
+        if not frames:
+            fmt.check_crc(b"", stored_crc)
+            return b""
+        if chunk:
+            layout = ModelLayout(PROFILES[FLAG_PROFILES[flags & 0b11]],
+                                 lo_bucketed=True)
+            raw = decode.decompress_frames(frames, chunk, layout, dev)
+        else:
+            profile = FLAG_PROFILES.get(flags)
+            if profile is None:
+                # flags the scan has no profile for: the golden engine
+                raw = engine_np.decompress(blob)
+                stats["golden_frames"] += len(frames)
+                return raw
+            raw = adaptive.decompress_frames(frames, profile, dev)
+        with tracelog.span("decode/crc", bytes=len(raw)):
+            fmt.check_crc(raw, stored_crc)
+        return raw

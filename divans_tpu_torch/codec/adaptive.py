@@ -41,7 +41,6 @@ engine, as in the reference (jax_engine.py:965-969, :1191-1202).
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -67,26 +66,6 @@ def _pool_width() -> int:
     return max(1, min(8, os.cpu_count() or 1))
 
 
-class _Clock:
-    """Seconds a stage, into `timing` when given (the card synchronised
-    at each mark, so a stage holds its device work); no-op otherwise."""
-
-    def __init__(self, timing: dict | None, dev: torch.device):
-        self.timing = timing
-        self.dev = dev
-        self.sync = timing is not None and dev.type == "cuda"
-        self.t = time.perf_counter()
-
-    def mark(self, stage: str) -> None:
-        if self.timing is None:
-            return
-        if self.sync:
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.timing[stage] = self.timing.get(stage, 0.0) + now - self.t
-        self.t = now
-
-
 def frame_trace(raw: bytes, options, layout) -> np.ndarray:
     """One frame's trace, range-checked for the model-pass kernel."""
     t = encode.frame_trace(raw, options, layout)
@@ -97,56 +76,52 @@ def frame_trace(raw: bytes, options, layout) -> np.ndarray:
 def _host_frame(raw: bytes, options, layout):
     """A pool worker's share: the frame's checked trace and its (cmd,
     lit) step counts."""
-    t = frame_trace(raw, options, layout)
-    return t, model_pass.lane_counts(t)
+    with tracelog.span("encode/frame_trace", bytes=len(raw)) as meta:
+        t = frame_trace(raw, options, layout)
+        if meta is not None:
+            meta["steps"] = t.shape[0]
+        return t, model_pass.lane_counts(t)
 
 
 @torch.inference_mode()
 def compress_frames(blocks, options, layout, device,
-                    timing: dict | None = None,
                     billing: list | None = None) -> list[fmt.MetablockFrame]:
     """The adaptive encode of metablocks on `device` ("cuda", "cuda:N",
     made the current device for its device stages, or "cpu" for the
-    plain versions).  `timing` (a dict) gets the seconds of each
-    stage (traces, upload, model_pass, rans, compaction, copy_back,
-    assembly) and the trace's upload bytes.  `billing` (a list) gets
-    each frame's (trace, freqs in trace order), the freqs copied back
-    with the compacted words."""
+    plain versions).  `billing` (a list) gets each frame's (trace, freqs
+    in trace order), the freqs copied back with the compacted words.
+    Each stage is a tracelog span (encode/trace_build over the pool's
+    encode/frame_trace spans, encode/model_pass over encode/upload,
+    encode/ans_lanes, encode/lane_bytes)."""
     dev = torch.device(device)
-    clock = _Clock(timing, dev)
     with tracelog.span("encode/trace_build", blocks=len(blocks)):
         with ThreadPoolExecutor(_pool_width()) as pool:
-            got = list(pool.map(lambda b: _host_frame(b, options, layout),
-                                blocks))
+            got = list(pool.map(tracelog.bound(
+                lambda b: _host_frame(b, options, layout)), blocks))
         counts = [c for _t, c in got]
         n_lane = max(1, max(max(c) for c in counts))
         n_steps = np.array([t.shape[0] for t, _c in got], np.int32)
-        clock.mark("traces")
     with tracelog.span("encode/model_pass", profile="adaptive"), \
             cuda_build.on_device(dev):
-        # the traces back to back on the device, copied frame by frame
-        # (no host copy of the whole)
-        trace_d = torch.empty((int(n_steps.sum()), model_pass.NCOLS),
-                              dtype=torch.int32, device=dev)
-        off = 0
-        for t, _c in got:
-            trace_d[off:off + t.shape[0]].copy_(torch.from_numpy(t))
-            off += t.shape[0]
-        n_steps_d = torch.from_numpy(n_steps).to(dev)
-        clock.mark("upload")
-        if timing is not None:
-            timing["upload_bytes"] = trace_d.numel() * 4 + n_steps.nbytes
+        total = int(n_steps.sum())
+        with tracelog.span("encode/upload", steps=total):
+            # the traces back to back on the device, copied frame by
+            # frame (no host copy of the whole)
+            trace_d = torch.empty((total, model_pass.NCOLS),
+                                  dtype=torch.int32, device=dev)
+            off = 0
+            for t, _c in got:
+                trace_d[off:off + t.shape[0]].copy_(torch.from_numpy(t))
+                off += t.shape[0]
+            n_steps_d = torch.from_numpy(n_steps).to(dev)
         starts, freqs, lane_n = model_pass.model_pass(trace_d, n_steps_d,
                                                       layout.num_rows, n_lane)
-        clock.mark("model_pass")
     with tracelog.span("encode/ans_lanes", lanes=2 * len(blocks)), \
             cuda_build.on_device(dev):
         words, flags, states = rans_encode.encode_lanes(starts, freqs,
                                                         lane_n)
-        clock.mark("rans")
         flat_w, header = rans_encode.compact_global(words, flags, lane_n,
                                                     states)
-        clock.mark("compaction")
         header = header.cpu().numpy()
         lane_n = lane_n.cpu().numpy()
         host_counts = np.array(counts, np.int32).reshape(-1)
@@ -156,14 +131,12 @@ def compress_frames(blocks, options, layout, device,
         flat_w = flat_w[:int(header[0].sum())].cpu().numpy()
         if billing is not None:
             freqs = freqs.cpu().numpy()
-        clock.mark("copy_back")
-    with tracelog.span("encode/assemble"):
+    with tracelog.span("encode/lane_bytes"):
         lanes = rans_encode.assemble_global(flat_w, header[0], header[1],
                                             host_counts.tolist())
         frames = [fmt.MetablockFrame(len(blocks[i]), lanes[2 * i],
                                      lanes[2 * i + 1])
                   for i in range(len(blocks))]
-        clock.mark("assembly")
     if billing is not None:
         billing += [(t, encode.trace_order(t, freqs[2 * i, :nc],
                                            freqs[2 * i + 1, :nl]))
@@ -172,52 +145,48 @@ def compress_frames(blocks, options, layout, device,
 
 
 @torch.inference_mode()
-def decompress_frames(frames, profile: str, device,
-                      timing: dict | None = None) -> bytes:
+def decompress_frames(frames, profile: str, device) -> bytes:
     """The adaptive decode of a container's frames on `device` (made the
     current device for the scan and its copies): one scan launch over
-    all of them, the frames it flags on the host.  `timing`
-    (a dict) gets the seconds of packing, upload, the scan, the copy back
-    and the host decodes, and the scan's max_steps."""
+    all of them, the frames it flags on the host, then the output.
+    Each stage is a tracelog span (decode/device_pipeline over
+    decode/pack, decode/upload, decode/scan and decode/copy_back, then
+    decode/serial_frames and decode/assemble)."""
     dev = torch.device(device)
-    clock = _Clock(timing, dev)
     with tracelog.span("decode/device_pipeline", frames=len(frames)), \
             cuda_build.on_device(dev):
-        cs, cw, ls, lw, raw_len, window_size, max_steps = \
-            scan_decode.pack_frames(frames)
-        clock.mark("pack")
-        args = [torch.from_numpy(a).to(dev)
-                for a in (cs, cw, ls, lw, raw_len)]
-        clock.mark("upload")
-        window, ok, _wpos = scan_decode.decode_scan(*args, profile,
-                                                    window_size, max_steps)
-        clock.mark("scan")
-        ok = ok.cpu().numpy()
-        width = int(raw_len.max()) if len(frames) else 0
-        window = window[:, :width].cpu().numpy()
-        clock.mark("copy_back")
-    if timing is not None:
-        timing["max_steps"] = max_steps
-    offsets = np.zeros(len(frames) + 1, np.int64)
-    np.cumsum(raw_len, out=offsets[1:])
-    out = np.empty(int(offsets[-1]), np.uint8)
-    flagged = []
-    for i, f in enumerate(frames):
-        if ok[i]:
-            out[offsets[i]:offsets[i + 1]] = window[i, :f.raw_len]
-        else:
-            flagged.append(i)
+        with tracelog.span("decode/pack"):
+            cs, cw, ls, lw, raw_len, window_size, max_steps = \
+                scan_decode.pack_frames(frames)
+        with tracelog.span("decode/upload"):
+            args = [torch.from_numpy(a).to(dev)
+                    for a in (cs, cw, ls, lw, raw_len)]
+        with tracelog.span("decode/scan", max_steps=max_steps):
+            window, ok, _wpos = scan_decode.decode_scan(
+                *args, profile, window_size, max_steps)
+        with tracelog.span("decode/copy_back"):
+            # the first copy waits for the scan
+            ok = ok.cpu().numpy()
+            width = int(raw_len.max()) if len(frames) else 0
+            window = window[:, :width].cpu().numpy()
+    flagged = [i for i in range(len(frames)) if not ok[i]]
     layout = ModelLayout(PROFILES[profile], lo_bucketed=False)
-    kinds = []
     with tracelog.span("decode/serial_frames", frames=len(flagged)), \
             ThreadPoolExecutor(_pool_width()) as pool:
-        for i, (raw, kind) in zip(flagged, pool.map(
-                lambda i: decode._host_decode(frames[i], layout, 0),
-                flagged)):
+        host = list(pool.map(tracelog.bound(
+            lambda i: decode._host_decode(frames[i], layout, 0)), flagged))
+    with tracelog.span("decode/assemble", bytes=int(raw_len.sum())):
+        offsets = np.zeros(len(frames) + 1, np.int64)
+        np.cumsum(raw_len, out=offsets[1:])
+        out = np.empty(int(offsets[-1]), np.uint8)
+        for i, f in enumerate(frames):
+            if ok[i]:
+                out[offsets[i]:offsets[i + 1]] = window[i, :f.raw_len]
+        for i, (raw, _kind) in zip(flagged, host):
             out[offsets[i]:offsets[i + 1]] = np.frombuffer(raw, np.uint8)
-            kinds.append(kind)
-        clock.mark("host")
+        out = out.tobytes()
+    kinds = [kind for _raw, kind in host]
     STATS["scan_frames"] += len(frames) - len(flagged)
     STATS["host_frames"] += kinds.count("host")
     STATS["golden_frames"] += kinds.count("golden")
-    return out.tobytes()
+    return out

@@ -682,7 +682,8 @@ def decompress_frames(frames, chunk: int, layout, device,
             cuda_build.on_device(device), \
             ThreadPoolExecutor(n_workers) as ex, \
             ThreadPoolExecutor(n_finish) as finisher:
-        futs = {ex.submit(one, frames[i]): i for i in range(len(frames))}
+        job = tracelog.bound(one)
+        futs = {ex.submit(job, frames[i]): i for i in range(len(frames))}
         ready: list = []
         need = 0
         for fut in as_completed(futs):
@@ -755,7 +756,8 @@ def _decompress_frames_resumable(frames, chunk: int, layout, device, one,
             cuda_build.on_device(device), \
             ThreadPoolExecutor(n_workers) as ex, \
             ThreadPoolExecutor(n_finish) as finisher:
-        futs = {ex.submit(one, frames[i]): i for i in range(len(frames))}
+        job = tracelog.bound(one)
+        futs = {ex.submit(job, frames[i]): i for i in range(len(frames))}
         for fut in as_completed(futs):
             kind, sc = fut.result()
             i = futs[fut]

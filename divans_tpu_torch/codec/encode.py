@@ -413,7 +413,8 @@ def compress_frames(blocks, options, layout, chunk: int, device,
     with cuda_build.on_device(device), \
             ThreadPoolExecutor(n_workers) as pool, \
             ThreadPoolExecutor(1) as puller:
-        futs = [pool.submit(host_frame, b, options, layout, chunk, bill)
+        frame = tracelog.bound(host_frame)
+        futs = [pool.submit(frame, b, options, layout, chunk, bill)
                 for b in blocks]
         for lo in range(0, n, HYBRID_BATCH):
             idxs = range(lo, min(lo + HYBRID_BATCH, n))

@@ -313,10 +313,11 @@ def build_trace(raw: bytes, options: DivansOptions, layout: ModelLayout,
     if mask is not None and not _mask_ok(mask):
         return None
     n = len(raw)
-    if options.quality >= 10 and n >= 4:
-        matches = find_matches_optimal(raw, Q10_DEPTH, Q10_KCAND)
-    else:
-        matches = find_matches(raw, options.quality)
+    with tracelog.span("encode/parse", bytes=n):
+        if options.quality >= 10 and n >= 4:
+            matches = find_matches_optimal(raw, Q10_DEPTH, Q10_KCAND)
+        else:
+            matches = find_matches(raw, options.quality)
     nm = matches.shape[0]
     if nm == 0:
         matches = np.zeros((1, 3), np.int32)
@@ -324,10 +325,11 @@ def build_trace(raw: bytes, options: DivansOptions, layout: ModelLayout,
     out = np.empty((cap, 10), np.int32)
     mask_buf = ((ctypes.c_uint8 * 8192).from_buffer_copy(mask)
                 if mask is not None else None)
-    ns = lib.dtpu_build_trace(
-        raw, n, matches.ctypes.data_as(ctypes.c_void_p), nm,
-        *_fsm_args(options, layout), mask_buf,
-        out.ctypes.data_as(ctypes.c_void_p), cap)
+    with tracelog.span("encode/trace_fsm", matches=nm):
+        ns = lib.dtpu_build_trace(
+            raw, n, matches.ctypes.data_as(ctypes.c_void_p), nm,
+            *_fsm_args(options, layout), mask_buf,
+            out.ctypes.data_as(ctypes.c_void_p), cap)
     if ns < 0:
         return None
     return out[:ns]
@@ -552,7 +554,7 @@ def compress(data: bytes,
     with tracelog.span("encode/native_serial", bytes=len(data)):
         if len(blocks) > 1:
             with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
-                results = list(ex.map(one, blocks))
+                results = list(ex.map(tracelog.bound(one), blocks))
         else:
             results = [one(b) for b in blocks]
     if any(r is None for r in results):
@@ -732,7 +734,7 @@ def decompress(blob: bytes) -> bytes:
     # the pool only for native code, which releases the interpreter lock
     if len(frames) > 1 and load() is not None:
         with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
-            parts = list(ex.map(one, frames))
+            parts = list(ex.map(tracelog.bound(one), frames))
     else:
         parts = [one(f) for f in frames]
     out = b"".join(parts)
