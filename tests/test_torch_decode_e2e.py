@@ -89,8 +89,10 @@ def test_adaptive_container_is_not_ported():
     blob = jnative.compress(data, JOptions())
     adaptive.reset_stats()
     assert _decode(blob) == data
-    assert adaptive.STATS == {"scan_frames": 1, "host_frames": 0,
-                              "golden_frames": 0}
+    stats = dict(adaptive.STATS)
+    assert stats.pop("staging_grows") <= 1
+    assert stats == {"scan_frames": 1, "host_frames": 0,
+                     "golden_frames": 0, "staged_calls": 1}
 
 
 def test_corrupt_crc_raises():

@@ -12,6 +12,9 @@ warp's records, the literal warp's warp-wide rows) is emulated on the
 host by tests/adaptive_lanes.py and held to the same outputs, exactly:
 at each lane's end, cut at 1001 and 1004 micro-steps, cut inside a
 literal run and inside a copy, on flipped bits, stride and mix lanes.
+The adaptive decode's staging (codec/adaptive: the lanes sent up as they
+are on the wire, expanded on the device) gives the scan pack_frames'
+inputs exactly, on each batch and on lanes no encoder writes.
 
 The two paths of the kernel that no command list reaches run on frames
 written at the trace level (chip_smoke.scan_path_lanes): the escape drain
@@ -37,7 +40,7 @@ from divans_tpu.options import DivansOptions as JOptions
 
 import adaptive_lanes
 import chip_smoke
-from divans_tpu_torch.codec import scan_decode
+from divans_tpu_torch.codec import adaptive, scan_decode
 from divans_tpu_torch.container import format as fmt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -138,6 +141,50 @@ def test_pack_frames_matches_reference(cm_batch):
     assert got[5:] == ref[5:]
 
 
+def _edge_batch(cm_batch):
+    """Two clean frames, then lanes no encoder writes: both empty,
+    shorter than a state, a cmd lane cut short (corrupt), states at and
+    past 2**31 (negative as int32)."""
+    f = cm_batch[0][0]
+    return cm_batch[0][:2] + [
+        fmt.MetablockFrame(0, b"", b""),
+        fmt.MetablockFrame(3, f.cmd[:1], f.lit[:3]),
+        fmt.MetablockFrame(5, f.cmd[:2], b""),
+        fmt.MetablockFrame(f.raw_len, f.cmd[:len(f.cmd) // 4 * 2], f.lit),
+        fmt.MetablockFrame(9, b"\xff" * 4, b"\x00\x00\x00\x80\x01\x00")]
+
+
+@pytest.mark.parametrize("batch", ["cm", "mix", "stride", "edge"])
+def test_staged_lanes_equal_pack_frames(request, batch):
+    """codec/adaptive's staging sends the lanes up as they are on the
+    wire and expands them on the device (here the CPU): the scan's
+    inputs equal pack_frames' element for element (states, both word
+    arrays, raw_len) and its window_size and max_steps, on every batch
+    this file builds, flipped, corrupt and empty lanes included."""
+    frames = (_edge_batch(request.getfixturevalue("cm_batch"))
+              if batch == "edge"
+              else request.getfixturevalue(f"{batch}_batch")[0])
+    want = scan_decode.pack_frames(frames)
+    st = adaptive._Staging(torch.device("cpu"))
+    p = st.pack(frames)
+    got = st.upload(p)
+    for name, g, w in zip(("cmd_states", "cmd_words", "lit_states",
+                           "lit_words", "raw_len"), got, want[:5]):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert (p.window_size, p.max_steps) == want[5:]
+
+
+def test_staged_lanes_refuse_an_odd_lane(cm_batch):
+    """A lane of odd length past its state has no whole u16 words: the
+    staging raises ValueError where pack_frames does."""
+    frames = cm_batch[0][:1] + [fmt.MetablockFrame(4, b"\x01" * 7, b"")]
+    with pytest.raises(ValueError):
+        scan_decode.pack_frames(frames)
+    with pytest.raises(ValueError):
+        adaptive._Staging(torch.device("cpu")).pack(frames)
+
+
 @pytest.fixture(scope="module")
 def cm_scan(cm_batch):
     """(reference, port) scans of cm_batch's frames at their own
@@ -165,12 +212,20 @@ def test_scan_matches_reference_cm(cm_batch, cm_scan):
         assert ok[i] and window[i, :len(raw)].tobytes() == raw
 
 
-def test_scan_matches_reference_stride():
+@pytest.fixture(scope="module")
+def stride_batch():
+    """(frames, data): text with a binary tail in the stride profile,
+    then the first frame with a flipped bit in its cmd stream."""
     rng = np.random.default_rng(8)
     data = _text(MB + 900, seed=4) + rng.integers(
         0, 256, 300, dtype=np.uint8).tobytes()
     frames = _frames(data, use_context_map=False, dynamic_context_mixing=0)
     frames.append(_flip(frames[0], "cmd", 3))
+    return frames, data
+
+
+def test_scan_matches_reference_stride(stride_batch):
+    frames, data = stride_batch
     ref, got = _both(frames, "stride")
     _assert_equal(ref, got)
     assert got[1][:-1].all()
