@@ -11,7 +11,13 @@ Three stages, as in the reference:
      against the frozen model and the commit of the previous chunk's
      updates (the deferred profile's one-chunk lag);
   3. host C++ executes the command scripts (native.execute_script) into
-     one preallocated output buffer, on a 2-thread finish pool.
+     one output buffer (the calling thread's, kept across calls), on a
+     2-thread finish pool.
+
+The frames go to the card in file order, so the lane groups, their
+launches and the counters in STATS are a function of the container
+alone, whichever pool thread finishes first.  The structure pool takes
+the CPUs the process may run on (structure_workers).
 
 Without the native library, stages 1 and 3 are the reference's golden
 Python ones (deferred.decode_cmd_structure and deferred.execute_script,
@@ -59,8 +65,12 @@ SEG_STEPS = 192                  # chunks a segment of the resumable route
 # frames decoded by each path since the last reset: "device" = literals
 # on the lane kernel, "host" = native serial decode, "golden" = the
 # golden engine (a frame native code refuses, or a whole container the
-# golden engine decodes: api.decompress)
-STATS = {"device_frames": 0, "host_frames": 0, "golden_frames": 0}
+# golden engine decodes: api.decompress); and the grouped pipeline's
+# kernel-1 launches ("groups"), the chunks their lanes decode
+# ("lane_chunks") and the chunk slots they run, a group's lanes times its
+# longest lane's chunks ("slot_chunks")
+STATS = {"device_frames": 0, "host_frames": 0, "golden_frames": 0,
+         "groups": 0, "lane_chunks": 0, "slot_chunks": 0}
 
 
 def reset_stats() -> None:
@@ -539,13 +549,39 @@ def decode_structures(frames, chunk: int, layout) -> list | None:
         return _structure(f, chunk, layout)
 
     if len(frames) > 1 and native.load() is not None:
-        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        with ThreadPoolExecutor(structure_workers()) as ex:
             scripts = list(ex.map(one, frames))
     else:
         scripts = [one(f) for f in frames]
     if not all(sc is not None and sc.supported for sc in scripts):
         return None
     return scripts
+
+
+def structure_workers() -> int:
+    """The grouped pipeline's default structure pool: a thread for each
+    CPU the process may use (its affinity mask), 1 to 8.  The structure
+    passes are most of a call's work (~7-9 ms of native code a 256 KiB
+    frame); the issuing thread and the finishers mostly wait (for a
+    script, for the card), so they get no cores of their own: on an
+    8-core H100 host, decoding a 48 MiB container in turns, 5 workers
+    took 24 % longer a call than 8, and 7 took 2.5 % longer."""
+    return max(1, min(8, len(os.sched_getaffinity(0))))
+
+
+_local = threading.local()
+
+
+def _out_buffer(n: int) -> np.ndarray:
+    """uint8[n]: the front of this thread's output buffer, grown to its
+    largest call and kept after it (a fresh 48 MiB array a call paid its
+    page faults, and its unmapping, every call).  Each call returns a
+    copy (`tobytes`), and its pools are joined before it returns, so no
+    writer outlives the call."""
+    buf = getattr(_local, "out", None)
+    if buf is None or buf.size < n:
+        buf = _local.out = np.empty(n, np.uint8)
+    return buf[:n]
 
 
 def _setting(value, name: str, default: int) -> int:
@@ -563,12 +599,24 @@ def decompress_frames(frames, chunk: int, layout, device,
     device while the groups are issued).
 
     Pipelining: all frames' structure passes are queued on a thread pool
-    at once; frames gather into GROUPS in script-arrival order, sized by
-    literal chunk need (GROUP_CHUNKS per lane), and each group is issued
-    as soon as it is full, while later groups' structure passes run.
-    Kernel launches and tensor ops all come from this thread, on one
-    stream.  Each group's finish (wait for its copy, reassemble the
-    literals, execute the scripts) runs on a 2-thread pool.
+    at once; this thread takes their scripts in file order, so frames
+    gather into GROUPS of consecutive frames, sized by literal chunk need
+    (GROUP_CHUNKS per lane), and each group is issued as soon as it is
+    full, while later groups' structure passes run.  The groups, their
+    lanes and their launches are thus the same on every call of one
+    container.  Kernel launches and tensor ops all come from this
+    thread, on one stream.  Each group's finish (wait for its copy,
+    gather each frame's literals, execute the scripts) runs on a
+    2-thread pool.  The structure pool takes the CPUs the process may
+    use, its affinity mask (structure_workers).
+
+    Spans (tracelog): decode/device_pipeline over decode/structure (a
+    frame, on the structure pool), decode/group_issue (the lane jobs,
+    their packing, the upload and kernel 1's enqueue) and, on the finish
+    pool, decode/group_finish over decode/group_wait (the copy's
+    event), decode/lit_gather and decode/execute (a frame each).  STATS
+    counts the groups, the chunks their lanes decode and the chunk slots
+    they run.
 
     Frames outside the lane kernel's envelope (the mix/split/stride
     profiles, or a script the device cannot take) decode host-side
@@ -586,7 +634,7 @@ def decompress_frames(frames, chunk: int, layout, device,
       qpl (DIVANS_DEC_QPL, 1): qpl * LANES lanes a group or segment (on
         the card more blocks; the reference interleaved queues a lane);
       group_chunks (DIVANS_DEC_GROUP_CHUNKS, 128): chunk slots per lane
-        a group; workers (DIVANS_DEC_WORKERS, min(8, cores)) and
+        a group; workers (DIVANS_DEC_WORKERS, structure_workers()) and
         finishers (DIVANS_DEC_FINISHERS, 2): the pools' threads;
       seg_steps (DIVANS_DEC_SEG_STEPS, 192): the steps of a segment;
         seg_chunks (DIVANS_DEC_SEG_CHUNKS, seg_steps): a segment
@@ -599,8 +647,7 @@ def decompress_frames(frames, chunk: int, layout, device,
         raise ValueError(f"qpl must be at least 1, got {lanes // LANES}")
     need_target = lanes * _setting(group_chunks, "DIVANS_DEC_GROUP_CHUNKS",
                                    GROUP_CHUNKS)
-    n_workers = _setting(workers, "DIVANS_DEC_WORKERS",
-                         max(1, min(8, os.cpu_count() or 2)))
+    n_workers = _setting(workers, "DIVANS_DEC_WORKERS", structure_workers())
     n_finish = _setting(finishers, "DIVANS_DEC_FINISHERS", N_FINISHERS)
     s_bytes = chunk // 2
     inflight = [0]           # groups issued and not yet copied back
@@ -612,7 +659,8 @@ def decompress_frames(frames, chunk: int, layout, device,
         groups in flight every frame decodes here (with the native
         library only, as in the reference)."""
         if inflight[0] < backlog or native.load() is None:
-            sc = decode_structure(f, chunk, layout)
+            with tracelog.span("decode/structure", bytes=f.raw_len):
+                sc = decode_structure(f, chunk, layout)
             if sc is not None:
                 return "dev", sc
         raw, kind = _host_decode(f, layout, chunk)
@@ -620,7 +668,7 @@ def decompress_frames(frames, chunk: int, layout, device,
 
     offsets = np.zeros(len(frames) + 1, np.int64)
     np.cumsum([f.raw_len for f in frames], out=offsets[1:])
-    out_buf = np.empty(int(offsets[-1]), np.uint8)
+    out_buf = _out_buffer(int(offsets[-1]))
 
     def arrived(i, kind, val) -> bool:
         """Count frame i's path; store a host-decoded frame.  True when
@@ -645,37 +693,49 @@ def decompress_frames(frames, chunk: int, layout, device,
 
     def issue_group(ready):
         """ready: [(frame index, script)]."""
-        streams, n_lits, lcmaps, spds, spans = lane_jobs(frames, ready)
-        queues, n_steps, placement = pack_lane_queues(
-            streams, n_lits, lcmaps, spds, chunk, lanes=lanes)
-        host, event = issue_lane_queues(queues, n_steps, chunk, layout,
-                                        device, timing)
+        with tracelog.span("decode/group_issue") as meta:
+            streams, n_lits, lcmaps, spds, spans = lane_jobs(frames, ready)
+            queues, n_steps, placement = pack_lane_queues(
+                streams, n_lits, lcmaps, spds, chunk, lanes=lanes)
+            host, event = issue_lane_queues(queues, n_steps, chunk, layout,
+                                            device, timing)
+            if meta is not None:
+                meta.update(lanes=int((queues.counts > 0).sum()),
+                            chunks=n_steps)
+        STATS["groups"] += 1
+        STATS["lane_chunks"] += sum(-(-n // s_bytes) for n in n_lits)
+        STATS["slot_chunks"] += lanes * n_steps
         with inflight_lock:
             inflight[0] += 1
         return ready, spans, n_lits, placement, host, event
 
     def finish_group(group):
         ready, spans, n_lits, placement, host, event = group
-        # the count drops even if the wait raises, or the backlog split
-        # would stay on for the rest of the call
-        try:
-            if event is not None:
-                event.synchronize()
-        finally:
-            with inflight_lock:
-                inflight[0] -= 1
-        arr = host.numpy()
-        for (i, sc), (off, k) in zip(ready, spans):
-            lb = np.empty(sum(n_lits[off:off + k]), np.uint8)
-            pos = 0
-            for j in range(off, off + k):
-                if placement[j] is None:
-                    continue
-                lane, c_off = placement[j]
-                o = c_off * s_bytes
-                lb[pos:pos + n_lits[j]] = arr[lane, o:o + n_lits[j]]
-                pos += n_lits[j]
-            execute(sc, lb, out_buf[offsets[i]:offsets[i + 1]])
+        with tracelog.span("decode/group_finish", frames=len(ready)):
+            # the count drops even if the wait raises, or the backlog
+            # split would stay on for the rest of the call
+            try:
+                with tracelog.span("decode/group_wait"):
+                    if event is not None:
+                        event.synchronize()
+            finally:
+                with inflight_lock:
+                    inflight[0] -= 1
+            arr = host.numpy()
+            for (i, sc), (off, k) in zip(ready, spans):
+                with tracelog.span("decode/lit_gather"):
+                    lb = np.empty(sum(n_lits[off:off + k]), np.uint8)
+                    pos = 0
+                    for j in range(off, off + k):
+                        if placement[j] is None:
+                            continue
+                        lane, c_off = placement[j]
+                        o = c_off * s_bytes
+                        lb[pos:pos + n_lits[j]] = arr[lane, o:o + n_lits[j]]
+                        pos += n_lits[j]
+                with tracelog.span("decode/execute",
+                                   bytes=int(offsets[i + 1] - offsets[i])):
+                    execute(sc, lb, out_buf[offsets[i]:offsets[i + 1]])
 
     finish_futs = []
     with tracelog.span("decode/device_pipeline", frames=len(frames)), \
@@ -683,12 +743,14 @@ def decompress_frames(frames, chunk: int, layout, device,
             ThreadPoolExecutor(n_workers) as ex, \
             ThreadPoolExecutor(n_finish) as finisher:
         job = tracelog.bound(one)
-        futs = {ex.submit(job, frames[i]): i for i in range(len(frames))}
+        finish = tracelog.bound(finish_group)
+        futs = [ex.submit(job, f) for f in frames]
         ready: list = []
         need = 0
-        for fut in as_completed(futs):
+        # in file order: the groups do not depend on which worker
+        # finishes first
+        for i, fut in enumerate(futs):
             kind, val = fut.result()
-            i = futs[fut]
             if not arrived(i, kind, val):
                 continue
             ready.append((i, val))
@@ -696,12 +758,11 @@ def decompress_frames(frames, chunk: int, layout, device,
             # one ceil over the frame's literal total
             need += -(-val.lit_total // s_bytes)
             if need >= need_target:
-                finish_futs.append(finisher.submit(finish_group,
+                finish_futs.append(finisher.submit(finish,
                                                    issue_group(ready)))
                 ready, need = [], 0
         if ready:
-            finish_futs.append(finisher.submit(finish_group,
-                                               issue_group(ready)))
+            finish_futs.append(finisher.submit(finish, issue_group(ready)))
     for fut in finish_futs:
         fut.result()
     return out_buf.tobytes()

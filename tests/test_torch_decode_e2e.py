@@ -36,6 +36,10 @@ def _corpus(n: int, seed: int) -> bytes:
             + rng.integers(0, 256, k, dtype=np.uint8).tobytes())
 
 
+# decode.STATS's frame counts (it counts the lane groups beside them)
+FRAMES = ("device_frames", "host_frames", "golden_frames")
+
+
 def _decode(blob: bytes) -> bytes:
     decode.reset_stats()
     return port.decompress(blob, device="cpu")
@@ -50,8 +54,9 @@ def test_reference_container_roundtrips_on_device_path(mb, size):
     n_frames = len(jfmt.deserialize(blob)[2])
     assert _decode(blob) == data
     # every cm frame went through the lane decode, none to the host path
-    assert decode.STATS == {"device_frames": n_frames, "host_frames": 0,
-                            "golden_frames": 0}
+    assert {k: decode.STATS[k] for k in FRAMES} == {
+        "device_frames": n_frames, "host_frames": 0, "golden_frames": 0}
+    assert decode.STATS["groups"] >= 1
 
 
 def test_port_compress_roundtrips():
@@ -72,7 +77,8 @@ def test_other_profiles_take_the_host_path(kw):
     n_frames = len(jfmt.deserialize(blob)[2])
     assert _decode(blob) == data
     assert decode.STATS == {"device_frames": 0, "host_frames": n_frames,
-                            "golden_frames": 0}
+                            "golden_frames": 0, "groups": 0,
+                            "lane_chunks": 0, "slot_chunks": 0}
 
 
 def test_empty_input_roundtrips():
